@@ -3,35 +3,53 @@
 
     python3 chip_smoke.py [--profile]
 
-Phases, each printing one JSON line with its seconds:
+Phases, each printing JSON lines with their seconds:
 
-1. device   - the card (``nvidia-smi`` name and power limit, torch's name);
-2. build    - nvcc builds ``contrastive_lift_tpu_torch/csrc/brick_interp.cu``
-              into ``contrastive_lift_tpu_torch/_build/``;
-3. kernels  - both kernel entry points against their plain PyTorch versions
-              at the r5b shapes (a 131x131x121 N(0,1) density grid, its
-              32,670-row atlas, 1,024 rays x 879 samples uniform in
-              [-1.02, 1.02]^3 so out-of-box samples are exercised), with
-              CUDA-event times of the kernel, the plain version and one
-              library call (``F.grid_sample``) as yardstick, each with the
-              50 MB L2 flushed before every timed call;
-4. main     - the port's dense render of the committed r5b checkpoint on the
-              4 val frames of its scene, then mean-shift and PQ^scene
-              (``inference/fidelity.py::run_dense``), held against the JAX
-              golden ``contrastive_lift_tpu_torch/testdata/
-              r5b_dense_golden.npz``: maps within 1e-3 at the golden's 2,048
-              rays, PQ^scene and masked PQ within 0.5 pt. The launch counts
-              are zeroed just before and read just after; the density kernel
-              must have run;
-5. profile  - only with ``--profile``: one more render of the 4 val frames
-              under ``torch.profiler``, with its wall and device seconds, the
-              idle share, device time by kernel kind (matmul, density
-              kernel, other) and the top kernels.
+1. device  - the card (``nvidia-smi`` name and power limit, torch's name);
+2. build   - nvcc builds ``contrastive_lift_tpu_torch/csrc/brick_interp.cu``
+             into ``contrastive_lift_tpu_torch/_build/``;
+3. kernels - both kernel entry points, on float32 and on bfloat16 rows,
+             against their plain PyTorch versions on two input sets at the
+             r5b chunk shape (1,024 rays x 879 samples):
+             ``random``: a 131x131x121 N(0,1) density grid and samples
+             uniform in [-1.02, 1.02]^3 (out-of-box samples included);
+             ``render_chunk``: the r5b checkpoint's own density grid and the
+             samples of the first 1,024 rays of val frame 0, exactly as the
+             render passes them to the kernel
+             (``inference/fidelity.py::render_chunk``).
+             The literal form gets the atlas rows gathered at those samples.
+             One line per form x input set x type: the kernel's CUDA-event
+             time as the median and spread of 5 repeats of a 20-launch loop,
+             with the 50 MB L2 flushed before every launch (as the render
+             leaves it) and L2-warm; the plain version's time; one library
+             call's time (``F.grid_sample``, the same function; bf16 values
+             upcast to float32 outside the timed call) as yardstick; the
+             bound (bytes over the HBM rate) and the kernel's share of it;
+             for the literal form the sector floor beside the bound;
+4. main    - the port's dense render of the committed r5b checkpoint on the
+             4 val frames of its scene, then mean-shift and PQ^scene
+             (``inference/fidelity.py::run_dense``), held against the JAX
+             golden ``contrastive_lift_tpu_torch/testdata/
+             r5b_dense_golden.npz``: maps within 1e-3 at the golden's 2,048
+             rays, PQ^scene and masked PQ within 0.5 pt. The launch counts
+             are zeroed just before and read just after; the float32
+             density kernel must have run;
+5. main_bf16_atlas - the same render with ``atlas_dtype="bfloat16"`` (heads
+             fp32, TF32 off): the bfloat16 density kernel must have run (and
+             the float32 one not), PQ^scene and masked PQ within 0.5 pt of
+             the golden (the bar of ``tools/pq_fidelity_gate.py
+             --atlas_dtype bfloat16``); the maps' distance from the golden
+             is printed, not gated;
+6. profile - only with ``--profile``: one more render of the 4 val frames
+             under ``torch.profiler``, with its wall and device seconds, the
+             idle share, device time by kernel kind (matmul, density
+             kernel, other) and the top kernels.
 
-Then one line ``{"kernels": [...]}`` and, last, ``{"ok": true, "device":
-{...}}``. Any failed check raises and the script exits non-zero; without a
-CUDA device, or without the rest of the repository beside it, it exits
-non-zero before printing any result.
+Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
+on the render-chunk inputs) and, last, ``{"ok": true, "device": {...}}``.
+Any failed check raises and the script exits non-zero; without a CUDA
+device, or without the rest of the repository beside it, it exits non-zero
+before printing any result.
 """
 import argparse
 import json
@@ -49,6 +67,8 @@ KERNEL_SOURCE = "contrastive_lift_tpu_torch/csrc/brick_interp.cu"
 # 1,024 rays (its scene and checkpoint are in inference/fidelity.py)
 GRID = (131, 131, 121)
 SAMPLES_PER_CHUNK = 1024 * 879
+DTYPES = ("float32", "bfloat16")
+# kernel vs plain: float32 sums of the same (widened) values, in another order
 KERNEL_TOL = 1e-5
 MAP_TOL = 1e-3
 PQ_TOL = 0.005
@@ -58,18 +78,25 @@ FP32_FLOP_PER_S = 67e12
 # flops per sample of the fused kernel: coordinates (~18), six hat weights
 # (24), twelve weight products, eight multiply-adds (16) and the shift
 FLOPS_PER_SAMPLE = 70
+# HBM and L2 move data in 32-B sectors
+SECTOR_BYTES = 32
+# lanes of a sample's 2x2x2 corners, relative to lane a0*25+b0*5+c0
+CORNER_LANES = (0, 1, 5, 6, 25, 26, 30, 31)
 # written before every timed call: more than twice the H100's 50 MB L2
 L2_FLUSH_BYTES = 128 << 20
-# about 0.1 s of spinning at the H100's 1.98 GHz boost clock: longer than
+# about 25 ms of spinning at the H100's 1.98 GHz boost clock: longer than
 # the host takes to queue any timed loop here
-SPIN_CYCLES = 200_000_000
+SPIN_CYCLES = 50_000_000
+# each time is the median of REPEATS loops of ITERS launches
+REPEATS = 5
+ITERS = 20
 
 
 def emit(record: dict) -> None:
     print(json.dumps(record), flush=True)
 
 
-def cuda_ms(fn, iters: int = 20, warmup: int = 3, flush: bool = True) -> float:
+def cuda_ms(fn, iters: int = ITERS, warmup: int = 3, flush: bool = True) -> float:
     """Mean milliseconds per call by CUDA events, after a warm-up. A spin
     kernel holds the device while every timed call is queued, so no event
     pair spans a wait for the host. With ``flush`` the L2 is overwritten
@@ -95,12 +122,29 @@ def cuda_ms(fn, iters: int = 20, warmup: int = 3, flush: bool = True) -> float:
     return sum(s.elapsed_time(e) for s, e in events) / iters
 
 
+def timed(fn, flush: bool = True):
+    """(median, max - min) of ``cuda_ms`` over REPEATS loops."""
+    runs = sorted(cuda_ms(fn, flush=flush) for _ in range(REPEATS))
+    return runs[len(runs) // 2], runs[-1] - runs[0]
+
+
 def bound(n_bytes: float, n_flops: float):
     """(bound_ms, bound_by): the larger of bytes over the HBM rate and fp32
     operations over the fp32 peak."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
     t_ops = n_flops / FP32_FLOP_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def corner_sectors(frac, elem_bytes: int):
+    """[P] count of distinct 32-B sectors of its row that each sample's 8
+    corner lanes occupy (rows start on a sector boundary)."""
+    import torch
+    lo = torch.clamp(torch.floor(frac), 0, 3).to(torch.int64)
+    base = lo[:, 0] * 25 + lo[:, 1] * 5 + lo[:, 2]
+    lanes = base[:, None] + torch.tensor(CORNER_LANES, device=frac.device)
+    sectors = lanes * elem_bytes // SECTOR_BYTES   # ascending along dim 1
+    return 1 + (sectors[:, 1:] != sectors[:, :-1]).sum(dim=1)
 
 
 def dense_yardstick(dense, xyz, shift: float):
@@ -151,75 +195,162 @@ def phase_build():
           "seconds": time.perf_counter() - t0})
 
 
-def phase_kernels():
+def kernel_inputs():
+    """name -> (dense float32 grid [gx,gy,gz], xyz [P,3], splus shift)."""
+    import torch
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        R5B_CKPT, R5B_SCENE, e2e_scene, render_chunk)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    dense = torch.randn(GRID, generator=gen, device="cuda")
+    xyz = torch.rand((SAMPLES_PER_CHUNK, 3), generator=gen,
+                     device="cuda") * 2.04 - 1.02
+    chunk = render_chunk(R5B_CKPT, e2e_scene(*R5B_SCENE), device="cuda")
+    if tuple(chunk[0].shape) != GRID or chunk[2].shape != xyz.shape:
+        raise AssertionError(f"unexpected r5b chunk shapes "
+                             f"{tuple(chunk[0].shape)} {tuple(chunk[2].shape)}")
+    return {"random": (dense, xyz, -10.0),
+            "render_chunk": (chunk[0], chunk[2].contiguous(), chunk[1])}
+
+
+def time_case(kernel, plain, library):
+    """The timings every case reports."""
+    ms, spread = timed(kernel)
+    warm, warm_spread = timed(kernel, flush=False)
+    lib_ms, lib_spread = timed(library)
+    return {"ms": ms, "ms_spread": spread, "l2_warm_ms": warm,
+            "l2_warm_spread": warm_spread, "plain_ms": timed(plain)[0],
+            "library_ms": lib_ms, "library_spread": lib_spread}
+
+
+def fused_case(dense, xyz, shift, dtype):
     import torch
     from contrastive_lift_tpu_torch.ops import brick_interp as bi
     from contrastive_lift_tpu_torch.ops.fused_grid import build_brick_atlas
 
-    t0 = time.perf_counter()
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    dense = torch.randn(GRID, generator=gen, device="cuda")
-    atlas = build_brick_atlas(dense)
-    xyz = torch.rand((SAMPLES_PER_CHUNK, 3), generator=gen,
-                     device="cuda") * 2.04 - 1.02
-    shift = -10.0
     n = xyz.shape[0]
-    records = {}
-
-    # fused entry: the form the render calls
+    atlas = build_brick_atlas(dense, getattr(torch, dtype))
     got = bi.sample_density_brick(atlas, xyz, GRID, shift)
     ref = bi.sample_density_brick_reference(atlas, xyz, GRID, shift)
-    torch.cuda.synchronize()
-    err = float((got - ref).abs().max())
-    library = dense_yardstick(dense, xyz, shift)
+    # the library reads the atlas's values, upcast outside the timed call
+    library = dense_yardstick(dense.to(atlas.dtype).float(), xyz, shift)
     in_box = (xyz.abs() <= 1.0).all(dim=1)
-    in_box_err = float((library() - got)[in_box].abs().max())
-    b_ms, b_by = bound(4 * (atlas.numel() + xyz.numel() + n),
-                       FLOPS_PER_SAMPLE * n)
-    records["sample_density_brick"] = {
-        "max_abs_err": err, "library_in_box_max_abs_err": in_box_err,
-        "ms": cuda_ms(lambda: bi.sample_density_brick(atlas, xyz, GRID, shift)),
-        "l2_warm_ms": cuda_ms(lambda: bi.sample_density_brick(
-            atlas, xyz, GRID, shift), flush=False),
-        "plain_ms": cuda_ms(lambda: bi.sample_density_brick_reference(
-            atlas, xyz, GRID, shift)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library)}
+    row, _ = bi.brick_coords(GRID, xyz)
+    rows_touched = int(torch.unique(row).numel())
+    torch.cuda.synchronize()
+    # the rows this chunk touches once, positions in, values out
+    b_ms, b_by = bound(rows_touched * atlas.shape[1] * atlas.element_size()
+                       + 16 * n, FLOPS_PER_SAMPLE * n)
+    rec = {"max_abs_err": float((got - ref).abs().max()),
+           "library_in_box_max_abs_err": float(
+               (library() - got)[in_box].abs().max()),
+           "out_of_box_samples": int((~in_box).sum()),
+           "atlas_rows": atlas.shape[0], "rows_touched": rows_touched,
+           **time_case(lambda: bi.sample_density_brick(atlas, xyz, GRID, shift),
+                       lambda: bi.sample_density_brick_reference(
+                           atlas, xyz, GRID, shift), library),
+           "bound_ms": b_ms, "bound_by": b_by}
+    return rec
 
-    # literal counterpart of the Pallas kernel: gathered rows + positions
+
+def literal_case(dense, xyz, dtype):
+    import torch
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+    from contrastive_lift_tpu_torch.ops.fused_grid import build_brick_atlas
+
+    n = xyz.shape[0]
+    atlas = build_brick_atlas(dense, getattr(torch, dtype))
     row, frac = bi.brick_coords(GRID, xyz)
     rows = atlas[row].contiguous()
     frac = frac.contiguous()
+    del atlas, row
     got = bi.brick_interp(rows, frac)
     ref = bi.brick_interp_reference(rows, frac)
-    library_rows = lattice_yardstick(rows, frac)
-    lib_err = float((library_rows() - got).abs().max())
+    rows_f32 = rows.float()
+    library = lattice_yardstick(rows_f32, frac)
+    lib_err = float((library() - got).abs().max())
+    esize = rows.element_size()
+    sectors = corner_sectors(frac, esize)
     torch.cuda.synchronize()
     # the function needs the 8 lanes of each row whose hat weight can be
     # non-zero (which 8 depends on frac), not the whole 128-lane row
-    b_ms, b_by = bound(4 * (8 * n + frac.numel() + n), FLOPS_PER_SAMPLE * n)
-    records["brick_interp"] = {
-        "max_abs_err": float((got - ref).abs().max()),
-        "library_max_abs_err": lib_err,
-        "ms": cuda_ms(lambda: bi.brick_interp(rows, frac)),
-        "plain_ms": cuda_ms(lambda: bi.brick_interp_reference(rows, frac)),
-        "bound_ms": b_ms, "bound_by": b_by, "library_ms": cuda_ms(library_rows)}
+    b_ms, b_by = bound((8 * esize + 16) * n, FLOPS_PER_SAMPLE * n)
+    floor_ms, _ = bound(SECTOR_BYTES * float(sectors.sum()) + 16 * n, 0)
+    rec = {"max_abs_err": float((got - ref).abs().max()),
+           "library_max_abs_err": lib_err,
+           "sectors_per_sample": float(sectors.float().mean()),
+           **time_case(lambda: bi.brick_interp(rows, frac),
+                       lambda: bi.brick_interp_reference(rows, frac), library),
+           "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms}
+    return rec
 
-    emit({"phase": "kernels", "samples": n, "atlas_rows": atlas.shape[0],
-          "out_of_box_samples": int((~in_box).sum()), "tolerance": KERNEL_TOL,
-          **{f"{k}_{m}": v[m] for k, v in records.items() for m in v},
-          "seconds": time.perf_counter() - t0})
-    for name, rec in records.items():
-        if not rec["max_abs_err"] <= KERNEL_TOL:
-            raise AssertionError(f"{name}: kernel vs plain max abs err "
-                                 f"{rec['max_abs_err']} > {KERNEL_TOL}")
-    if not records["brick_interp"]["library_max_abs_err"] <= KERNEL_TOL:
-        raise AssertionError("brick_interp: F.grid_sample yardstick computes "
-                             "another function")
+
+def phase_kernels():
+    """records[(kernel, inputs, dtype)] for every case; raises on a kernel
+    that disagrees with its plain version or a yardstick that computes
+    another function."""
+    import torch
+    records = {}
+    for inputs, (dense, xyz, shift) in kernel_inputs().items():
+        for dtype in DTYPES:
+            for kname, case in (
+                    ("sample_density_brick",
+                     lambda: fused_case(dense, xyz, shift, dtype)),
+                    ("brick_interp", lambda: literal_case(dense, xyz, dtype))):
+                t0 = time.perf_counter()
+                rec = case()
+                rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+                records[(kname, inputs, dtype)] = rec
+                emit({"phase": "kernels", "kernel": kname, "inputs": inputs,
+                      "dtype": dtype, "samples": xyz.shape[0],
+                      "tolerance": KERNEL_TOL, **rec,
+                      "seconds": time.perf_counter() - t0})
+                torch.cuda.empty_cache()
+                if not rec["max_abs_err"] <= KERNEL_TOL:
+                    raise AssertionError(
+                        f"{kname} {inputs} {dtype}: kernel vs plain max abs "
+                        f"err {rec['max_abs_err']} > {KERNEL_TOL}")
+                if not rec.get("library_max_abs_err", 0.0) <= KERNEL_TOL:
+                    raise AssertionError(
+                        f"brick_interp {inputs} {dtype}: F.grid_sample "
+                        "yardstick computes another function")
     return records
 
 
-def phase_main():
+def golden():
+    """(ray index, golden maps, golden scores) of the JAX golden."""
     import numpy as np
+    with np.load(GOLDEN) as g:
+        maps = {key: g[key] for key in ("rgb", "semantics", "instances",
+                                        "depth")}
+        scores = {key: float(g[key]) for key in ("pq_scene", "pq_masked",
+                                                 "sq", "rq")}
+        return g["ray_index"], maps, scores
+
+
+def map_errors(res):
+    import numpy as np
+    idx, maps, _ = golden()
+    return {key: float(np.abs(np.concatenate(
+        [f[key] for f in res["maps"]])[idx] - want).max())
+        for key, want in maps.items()}
+
+
+def check_pq(runs, label: str):
+    gold = golden()[2]
+    for key in ("pq_scene", "pq_masked"):
+        for run in runs:
+            if not abs(run[key] - gold[key]) <= PQ_TOL:
+                raise AssertionError(f"{label}: {key} {run[key]} vs JAX "
+                                     f"golden {gold[key]}: beyond {PQ_TOL}")
+
+
+def launch_counts():
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+    return {k.__name__: dict(k.dtype_launches, total=k.launches)
+            for k in bi.KERNELS}
+
+
+def phase_main():
     import torch
     from contrastive_lift_tpu_torch.inference.fidelity import (
         R5B_CKPT, R5B_SCENE, e2e_scene, run_dense)
@@ -228,29 +359,21 @@ def phase_main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     scene = e2e_scene(*R5B_SCENE)
-    kernels = (bi.brick_interp, bi.sample_density_brick)
-    for k in kernels:
-        k.launches = 0
+    bi.reset_launches()
     t0 = time.perf_counter()
     res = run_dense(R5B_CKPT, scene, device="cuda")
     seconds = time.perf_counter() - t0
-    launches = {k.__name__: k.launches for k in kernels}
+    launches = launch_counts()
     # a second, warm run: steady-state render time, and the same scores
     warm = run_dense(R5B_CKPT, scene, device="cuda")
 
     n_rays = sum(len(f.rays) for f in scene.val_frames)
-    with np.load(GOLDEN) as g:
-        idx = g["ray_index"]
-        map_err = {key: float(np.abs(np.concatenate(
-            [f[key] for f in res["maps"]])[idx] - g[key]).max())
-            for key in ("rgb", "semantics", "instances", "depth")}
-        gold = {key: float(g[key]) for key in ("pq_scene", "pq_masked",
-                                               "sq", "rq")}
+    map_err = map_errors(res)
     emit({"phase": "main", "grid_dim": list(res["grid_dim"]),
           "n_samples": res["n_samples"], "rays": n_rays,
           "launches": launches, "map_max_abs_err": map_err,
           **{k: res[k] for k in ("pq_scene", "pq_masked", "sq", "rq")},
-          "golden": gold,
+          "golden": golden()[2],
           "render_seconds": res["render_seconds"],
           "cluster_seconds": res["cluster_seconds"],
           "rays_per_second": n_rays / res["render_seconds"],
@@ -260,8 +383,9 @@ def phase_main():
           "warm_pq_scene": warm["pq_scene"],
           "warm_pq_masked": warm["pq_masked"],
           "seconds": seconds})
-    if launches["sample_density_brick"] < 1:
-        raise AssertionError("the main path never launched sample_density_brick")
+    if launches["sample_density_brick"].get("float32", 0) < 1:
+        raise AssertionError("the main path never launched the float32 "
+                             "sample_density_brick kernel")
     if res["n_samples"] != 879 or tuple(res["grid_dim"]) != GRID:
         raise AssertionError(f"unexpected r5b shapes {res['grid_dim']} "
                              f"{res['n_samples']}")
@@ -269,11 +393,38 @@ def phase_main():
         if not err <= MAP_TOL:
             raise AssertionError(f"{key} map differs from the JAX golden by "
                                  f"{err} > {MAP_TOL}")
-    for key in ("pq_scene", "pq_masked"):
-        for run in (res, warm):
-            if not abs(run[key] - gold[key]) <= PQ_TOL:
-                raise AssertionError(f"{key} {run[key]} vs JAX golden "
-                                     f"{gold[key]}: beyond {PQ_TOL}")
+    check_pq((res, warm), "main")
+    return launches
+
+
+def phase_main_bf16_atlas():
+    import torch
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        R5B_CKPT, R5B_SCENE, e2e_scene, run_dense)
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = e2e_scene(*R5B_SCENE)
+    bi.reset_launches()
+    t0 = time.perf_counter()
+    res = run_dense(R5B_CKPT, scene, device="cuda", atlas_dtype="bfloat16")
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    n_rays = sum(len(f.rays) for f in scene.val_frames)
+    emit({"phase": "main_bf16_atlas", "launches": launches,
+          "map_max_abs_err_vs_fp32_golden": map_errors(res),
+          **{k: res[k] for k in ("pq_scene", "pq_masked", "sq", "rq")},
+          "golden": golden()[2],
+          "render_seconds": res["render_seconds"],
+          "cluster_seconds": res["cluster_seconds"],
+          "rays_per_second": n_rays / res["render_seconds"],
+          "seconds": seconds})
+    density = launches["sample_density_brick"]
+    if density.get("bfloat16", 0) < 1 or density.get("float32", 0) != 0:
+        raise AssertionError(f"the bf16-atlas render launched {density}; "
+                             "expected the bfloat16 kernel only")
+    check_pq((res,), "main_bf16_atlas")
     return launches
 
 
@@ -337,6 +488,28 @@ def phase_profile(top: int = 12):
         raise AssertionError("the profiler recorded no device time")
 
 
+def kernel_line(records, launches):
+    """The ``kernels`` line: each entry point and row type, with its numbers
+    on the render-chunk inputs (the main path's own) and its launches in the
+    render of that row type."""
+    entries = []
+    for kname in ("brick_interp", "sample_density_brick"):
+        for dtype in DTYPES:
+            rec = records[(kname, "render_chunk", dtype)]
+            entries.append({
+                "name": f"{kname}_{'f32' if dtype == 'float32' else 'bf16'}",
+                "dtype": dtype, "route": "cuda", "source": KERNEL_SOURCE,
+                "replaces": TPU_KERNEL,
+                "launches": launches[dtype][kname].get(dtype, 0),
+                "max_abs_err": max(records[(kname, inputs, dtype)]
+                                   ["max_abs_err"]
+                                   for inputs in ("random", "render_chunk")),
+                **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms")},
+                "random_ms": records[(kname, "random", dtype)]["ms"]})
+    return {"kernels": entries}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
@@ -356,16 +529,11 @@ def main() -> int:
     name = phase_device()
     phase_build()
     records = phase_kernels()
-    launches = phase_main()
+    launches = {"float32": phase_main(),
+                "bfloat16": phase_main_bf16_atlas()}
     if args.profile:
         phase_profile()
-    emit({"kernels": [
-        {"name": kname, "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": TPU_KERNEL, "launches": launches[kname],
-         **{k: records[kname][k] for k in ("max_abs_err", "ms", "plain_ms",
-                                            "bound_ms", "bound_by",
-                                            "library_ms")}}
-        for kname in ("brick_interp", "sample_density_brick")]})
+    emit(kernel_line(records, launches))
     emit({"ok": True, "device": {"platform": "gpu", "kind": name,
                                  "count": torch.cuda.device_count()}})
     return 0

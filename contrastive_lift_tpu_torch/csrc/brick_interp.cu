@@ -1,31 +1,53 @@
-// Brick-atlas trilinear density for Hopper (sm_90a).
+// Brick-atlas trilinear density for Hopper (sm_90a), float32 or bfloat16 rows.
 //
 // Replaces the repository's only TPU kernel,
 // contrastive_lift_tpu/ops/pallas_interp.py::brick_interp (kernel body
 // _interp_kernel), and its XLA twin that production renders call,
-// contrastive_lift_tpu/ops/fused_grid.py::sample_density_brick.
+// contrastive_lift_tpu/ops/fused_grid.py::sample_density_brick. Like the
+// TPU kernel, both entry points take rows of either type and do all
+// arithmetic in float32 after the load.
 //
 // An atlas row holds the 5x5x5 corner lattice of a 4-voxel brick (lane
 // a*25+b*5+c, lanes 125-127 zero). The value at in-brick position (fx,fy,fz)
 // is sum over lanes of row[lane] * hat(fx-a) * hat(fy-b) * hat(fz-c) with
 // hat(t) = max(0, 1-|t|). The TPU kernel reduces all 128 lanes because the
-// TPU has no dynamic lane indexing; a GPU thread reads only the 2x2x2 lanes
+// TPU has no dynamic lane indexing; here a thread reads only the 2x2x2 lanes
 // whose hat weight can be non-zero, a in {a0, a0+1} with
 // a0 = clamp(floor(fx), 0, 3). The weights stay in the hat form, so samples
 // outside the box get the same clamped weights as the lane form (not linear
 // extrapolation). The sum runs over 8 terms instead of 128, in another order,
 // so results agree with the lane form to rounding, not bit for bit.
 //
-// What bounds it on an H100: one thread per sample, no tensor-core work.
-// Per sample the fused entry reads 12 B of coordinates and writes 4 B to
-// device memory and gathers 8 floats from one 512 B atlas row (about 4 L2
-// sectors). At the r5b checkpoint the atlas is 33*33*30 rows * 512 B =
-// 16.7 MB, which stays resident in the 50 MB L2, so the kernel is bound by
-// memory and L2 traffic, not arithmetic (about 60 flops per sample).
+// What bounds each entry point on an H100, and what the design does about it
+// (about 70 flops per sample, so both are bound by memory traffic):
+//
+// * brick_interp(rows [P,128], frac [P,3]): every sample has its own row,
+//   so the rows stream from device memory once (461 MB in float32 at the
+//   r5b chunk of 900,096 samples). The function needs 8 lanes of each row:
+//   lanes base+{0,1,5,6,25,26,30,31}, which lie in 2-5 of the row's 32-B
+//   sectors in float32 and 1-3 in bfloat16. A block stages its frac slice
+//   into shared memory with 16-B cp.async copies. Each (c0, c0+1) lane pair
+//   is one 16-B load of the aligned chunk holding lane c0, plus a 4-B load
+//   when lane c0+1 starts the next chunk; the loads are streaming
+//   (ld.global.nc.L1::no_allocate), since no row is read twice. Each thread
+//   handles 4 samples and issues all their loads (16-32) before it uses any.
+// * sample_density_brick(atlas [B,128], xyz [P,3]): finds each sample's row
+//   itself. The atlas (16.7 MB in float32 at r5b) fits in the 50 MB L2, so
+//   on random points the time goes to xyz in, the output out, and 8 L2
+//   gathers per sample. A render's samples are coherent: a ray's samples
+//   are a quarter voxel apart, so a warp's 32 consecutive samples fall into
+//   2-3 bricks. A block stages xyz like frac above; then, per round of 32
+//   samples, __match_any_sync groups the lanes of a warp that share a row.
+//   A group of at least kShareMin lanes has its row copied once, whole and
+//   coalesced (512 B in float32, 256 B in bfloat16), into shared memory by
+//   the whole warp, and reads its lanes there. The other lanes load their
+//   sectors directly (L1-cached 16-B loads), so random points lose nothing.
 //
 // Built by nvcc into a shared library with a plain C interface and bound with
 // ctypes (contrastive_lift_tpu_torch/ops/brick_interp.py). Each entry point
-// launches on the caller's stream and returns cudaGetLastError().
+// launches on the caller's stream and returns cudaGetLastError(). Row and
+// atlas pointers must be 16-B aligned (the wrapper checks); frac and xyz may
+// have any 4-B alignment (an unaligned slice is staged with scalar loads).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -34,6 +56,17 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kSamplesPerThread = 4;
+constexpr int kBlockSamples = kThreads * kSamplesPerThread;
+// Lanes of a warp that must share a row before the warp stages it whole.
+constexpr int kShareMin = 8;
+constexpr int kShareSlots = 32 / kShareMin;
+
+// bfloat16 as its bits: the kernels only widen it to float32.
+struct Bf16 {
+  uint16_t bits;
+};
 
 __device__ __forceinline__ float hat(float t) {
   return fmaxf(0.0f, 1.0f - fabsf(t));
@@ -44,83 +77,334 @@ __device__ __forceinline__ int lattice_lo(float f) {
   return static_cast<int>(fminf(fmaxf(floorf(f), 0.0f), 3.0f));
 }
 
-__device__ __forceinline__ float interp_row(const float* __restrict__ row,
-                                            float fx, float fy, float fz) {
+// Lane offset of corner pair p (0..3) from lane a0*25+b0*5+c0: the pairs
+// (c0, c0+1) at (a0,b0), (a0,b0+1), (a0+1,b0), (a0+1,b0+1).
+__device__ __forceinline__ int pair_offset(int p) {
+  return (p >> 1) * 25 + (p & 1) * 5;
+}
+
+// The sample's corner lattice position and its six hat weights.
+struct Cell {
+  int base;
+  float wa[2], wb[2], wc[2];
+};
+
+__device__ __forceinline__ Cell cell_of(float fx, float fy, float fz) {
   const int a0 = lattice_lo(fx), b0 = lattice_lo(fy), c0 = lattice_lo(fz);
+  Cell c;
+  c.base = a0 * 25 + b0 * 5 + c0;
+#pragma unroll
+  for (int d = 0; d < 2; ++d) {
+    c.wa[d] = hat(fx - static_cast<float>(a0 + d));
+    c.wb[d] = hat(fy - static_cast<float>(b0 + d));
+    c.wc[d] = hat(fz - static_cast<float>(c0 + d));
+  }
+  return c;
+}
+
+// v[2p], v[2p+1]: the values at lanes base+pair_offset(p) and the next lane.
+__device__ __forceinline__ float blend(const Cell& c, const float v[8]) {
   float acc = 0.0f;
 #pragma unroll
-  for (int da = 0; da < 2; ++da) {
-    const int a = a0 + da;
-    const float wa = hat(fx - static_cast<float>(a));
-#pragma unroll
-    for (int db = 0; db < 2; ++db) {
-      const int b = b0 + db;
-      const float wab = wa * hat(fy - static_cast<float>(b));
-#pragma unroll
-      for (int dc = 0; dc < 2; ++dc) {
-        const int c = c0 + dc;
-        const float w = wab * hat(fz - static_cast<float>(c));
-        acc += __ldg(row + a * 25 + b * 5 + c) * w;
-      }
-    }
+  for (int p = 0; p < 4; ++p) {
+    const float w = c.wa[p >> 1] * c.wb[p & 1];
+    acc += w * (c.wc[0] * v[2 * p] + c.wc[1] * v[2 * p + 1]);
   }
   return acc;
 }
 
-__global__ void brick_interp_kernel(const float* __restrict__ rows,
-                                    const float* __restrict__ frac,
-                                    float* __restrict__ out, int64_t n) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  out[i] = interp_row(rows + i * kLanes, frac[3 * i], frac[3 * i + 1],
-                      frac[3 * i + 2]);
+// ---- loads -----------------------------------------------------------------
+
+template <bool kStream>
+__device__ __forceinline__ uint4 load16(const void* p) {
+  if constexpr (kStream) {
+    uint4 v;
+    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+        : "l"(p));
+    return v;
+  } else {
+    return __ldg(static_cast<const uint4*>(p));
+  }
+}
+
+template <bool kStream>
+__device__ __forceinline__ uint32_t load4(const void* p) {
+  if constexpr (kStream) {
+    uint32_t v;
+    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
+    return v;
+  } else {
+    return __ldg(static_cast<const unsigned int*>(p));
+  }
+}
+
+__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
+               :
+               : "r"(s), "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// Elements of type T in one 16-B chunk.
+template <typename T>
+constexpr int kChunkElems = 16 / static_cast<int>(sizeof(T));
+
+__device__ __forceinline__ uint32_t word_of(const uint4& v, int w) {
+  return w == 0 ? v.x : (w == 1 ? v.y : (w == 2 ? v.z : v.w));
+}
+
+// Element r of a 16-B chunk, widened to float32.
+template <typename T>
+__device__ __forceinline__ float chunk_elem(const uint4& v, int r) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(word_of(v, r));
+  } else {
+    const uint32_t w = word_of(v, r >> 1);
+    return __uint_as_float((r & 1) ? (w & 0xffff0000u) : (w << 16));
+  }
+}
+
+// The element at the start of a 4-B word, widened to float32.
+template <typename T>
+__device__ __forceinline__ float word_elem(uint32_t w) {
+  if constexpr (sizeof(T) == 4) {
+    return __uint_as_float(w);
+  } else {
+    return __uint_as_float(w << 16);
+  }
+}
+
+// Element l of a row in shared memory, widened to float32.
+template <typename T>
+__device__ __forceinline__ float smem_elem(const T* row, int l) {
+  if constexpr (sizeof(T) == 4) {
+    return row[l];
+  } else {
+    return __uint_as_float(static_cast<uint32_t>(row[l].bits) << 16);
+  }
+}
+
+// A sample's 8 corner values as loaded from device memory: for each pair,
+// the 16-B chunk holding its first lane and, when the second lane starts
+// the next chunk, the 4-B word holding that one.
+struct PairChunks {
+  uint4 chunk[4];
+  uint32_t next[4];
+};
+
+template <typename T, bool kStream>
+__device__ __forceinline__ void load_corners(const T* row, int base,
+                                             PairChunks& c) {
+  constexpr int kE = kChunkElems<T>;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int l = base + pair_offset(p);
+    c.chunk[p] = load16<kStream>(row + (l & ~(kE - 1)));
+    c.next[p] = 0u;
+    if ((l & (kE - 1)) == kE - 1) c.next[p] = load4<kStream>(row + l + 1);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void corner_values(const PairChunks& c, int base,
+                                              float v[8]) {
+  constexpr int kE = kChunkElems<T>;
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int r = (base + pair_offset(p)) & (kE - 1);
+    v[2 * p] = chunk_elem<T>(c.chunk[p], r);
+    v[2 * p + 1] = r == kE - 1 ? word_elem<T>(c.next[p])
+                               : chunk_elem<T>(c.chunk[p], r + 1);
+  }
+}
+
+template <typename T>
+__device__ __forceinline__ void smem_values(const T* row, int base,
+                                            float v[8]) {
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int l = base + pair_offset(p);
+    v[2 * p] = smem_elem<T>(row, l);
+    v[2 * p + 1] = smem_elem<T>(row, l + 1);
+  }
+}
+
+// Copies `count` floats of a block's [n,3] slice into shared memory: 16-B
+// cp.async copies when the slice is 16-B aligned (a block's slice starts at
+// a multiple of 12 KB, so it is whenever the tensor is), scalar otherwise.
+__device__ __forceinline__ void stage_positions(float* s, const float* g,
+                                                int count) {
+  if ((reinterpret_cast<uintptr_t>(g) & 15u) == 0u) {
+    const int nvec = count >> 2;
+    for (int v = threadIdx.x; v < nvec; v += kThreads) {
+      cp_async16(s + 4 * v, g + 4 * v);
+    }
+    for (int e = 4 * nvec + threadIdx.x; e < count; e += kThreads) s[e] = g[e];
+    cp_async_wait_all();
+  } else {
+    for (int e = threadIdx.x; e < count; e += kThreads) s[e] = g[e];
+  }
+  __syncthreads();
+}
+
+// ---- kernels ---------------------------------------------------------------
+
+// Thread t of a block handles samples t, t+256, t+512, t+768 of the block's
+// 1,024, so every load instruction of a warp covers 32 consecutive samples.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    brick_interp_kernel(const T* __restrict__ rows,
+                        const float* __restrict__ frac,
+                        float* __restrict__ out, int64_t n) {
+  __shared__ __align__(16) float s_frac[3 * kBlockSamples];
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * kBlockSamples;
+  const int nb = static_cast<int>(
+      n - s0 < kBlockSamples ? n - s0 : static_cast<int64_t>(kBlockSamples));
+  stage_positions(s_frac, frac + 3 * s0, 3 * nb);
+
+  Cell cell[kSamplesPerThread];
+  PairChunks chunks[kSamplesPerThread];
+#pragma unroll
+  for (int k = 0; k < kSamplesPerThread; ++k) {
+    const int j = k * kThreads + threadIdx.x;
+    if (j < nb) {
+      cell[k] = cell_of(s_frac[3 * j], s_frac[3 * j + 1], s_frac[3 * j + 2]);
+      load_corners<T, true>(rows + (s0 + j) * kLanes, cell[k].base, chunks[k]);
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < kSamplesPerThread; ++k) {
+    const int j = k * kThreads + threadIdx.x;
+    if (j < nb) {
+      float v[8];
+      corner_values<T>(chunks[k], cell[k].base, v);
+      out[s0 + j] = blend(cell[k], v);
+    }
+  }
 }
 
 // Mirrors contrastive_lift_tpu/ops/fused_grid.py::_brick_coords: the
-// sample's clamped cell picks the brick, frac is the position inside it.
-__global__ void sample_density_brick_kernel(const float* __restrict__ atlas,
-                                            const float* __restrict__ xyz,
-                                            float* __restrict__ out, int64_t n,
-                                            int gx, int gy, int gz,
-                                            float splus_shift) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int by = (gy - 1 + 3) / 4;
-  const int bz = (gz - 1 + 3) / 4;
-  const float g[3] = {static_cast<float>(gx), static_cast<float>(gy),
-                      static_cast<float>(gz)};
-  float f[3];
+// sample's clamped cell picks the brick, f is the position inside it.
+__device__ __forceinline__ int brick_row(const float g[3], int by, int bz,
+                                         const float* q, float f[3]) {
   int brick[3];
 #pragma unroll
   for (int k = 0; k < 3; ++k) {
-    const float p = (xyz[3 * i + k] + 1.0f) * 0.5f * (g[k] - 1.0f);
+    const float p = (q[k] + 1.0f) * 0.5f * (g[k] - 1.0f);
     const float cell = fminf(fmaxf(floorf(p), 0.0f), g[k] - 2.0f);
     brick[k] = static_cast<int>(cell) / 4;
     f[k] = p - 4.0f * static_cast<float>(brick[k]);
   }
-  const int64_t row = (static_cast<int64_t>(brick[0]) * by + brick[1]) * bz + brick[2];
-  out[i] = interp_row(atlas + row * kLanes, f[0], f[1], f[2]) + splus_shift;
+  return (brick[0] * by + brick[1]) * bz + brick[2];
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    sample_density_brick_kernel(const T* __restrict__ atlas,
+                                const float* __restrict__ xyz,
+                                float* __restrict__ out, int64_t n, int gx,
+                                int gy, int gz, float splus_shift) {
+  constexpr int kE = kChunkElems<T>;
+  constexpr int kRowChunks = kLanes / kE;
+  __shared__ __align__(16) float s_xyz[3 * kBlockSamples];
+  __shared__ __align__(16) uint4 s_rows[kWarps][kShareSlots][kRowChunks];
+  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * kBlockSamples;
+  const int nb = static_cast<int>(
+      n - s0 < kBlockSamples ? n - s0 : static_cast<int64_t>(kBlockSamples));
+  stage_positions(s_xyz, xyz + 3 * s0, 3 * nb);
+
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const float g[3] = {static_cast<float>(gx), static_cast<float>(gy),
+                      static_cast<float>(gz)};
+  const int by = (gy - 1 + 3) / 4;
+  const int bz = (gz - 1 + 3) / 4;
+
+  for (int k = 0; k < kSamplesPerThread; ++k) {
+    const int j = k * kThreads + threadIdx.x;
+    const bool valid = j < nb;
+    float f[3] = {0.0f, 0.0f, 0.0f};
+    // lanes past the end get distinct negative keys and never group
+    int row = -1 - lane;
+    if (valid) row = brick_row(g, by, bz, s_xyz + 3 * j, f);
+    const Cell cell = cell_of(f[0], f[1], f[2]);
+
+    const unsigned peers = __match_any_sync(0xffffffffu, row);
+    const int leader = __ffs(peers) - 1;
+    const bool share = valid && __popc(peers) >= kShareMin;
+    const unsigned leaders = __ballot_sync(0xffffffffu, share && lane == leader);
+
+    PairChunks direct;
+    if (valid && !share) {
+      load_corners<T, false>(atlas + static_cast<int64_t>(row) * kLanes,
+                             cell.base, direct);
+    }
+    // the warp copies each shared row whole, one 16-B chunk a lane
+    unsigned pending = leaders;
+    for (int slot = 0; pending != 0u; ++slot) {
+      const int src = __ffs(pending) - 1;
+      pending &= pending - 1u;
+      const int r = __shfl_sync(0xffffffffu, row, src);
+      if (lane < kRowChunks) {
+        cp_async16(&s_rows[warp][slot][lane],
+                   atlas + static_cast<int64_t>(r) * kLanes + lane * kE);
+      }
+    }
+    cp_async_wait_all();
+    __syncwarp();
+
+    float v[8];
+    if (share) {
+      const int slot = __popc(leaders & ((1u << leader) - 1u));
+      smem_values<T>(reinterpret_cast<const T*>(s_rows[warp][slot]),
+                     cell.base, v);
+    } else {
+      corner_values<T>(direct, cell.base, v);
+    }
+    if (valid) out[s0 + j] = blend(cell, v) + splus_shift;
+    __syncwarp();  // the slots are rewritten in the next round
+  }
 }
 
 inline unsigned int blocks_for(int64_t n) {
-  return static_cast<unsigned int>((n + kThreads - 1) / kThreads);
+  return static_cast<unsigned int>((n + kBlockSamples - 1) / kBlockSamples);
 }
 
 }  // namespace
 
-extern "C" int brick_interp_launch(const float* rows, const float* frac,
-                                   float* out, int64_t n, void* stream) {
-  brick_interp_kernel<<<blocks_for(n), kThreads, 0,
-                        static_cast<cudaStream_t>(stream)>>>(rows, frac, out, n);
+// rows_bf16: 0 for float32 rows, 1 for bfloat16 rows.
+extern "C" int brick_interp_launch(const void* rows, int rows_bf16,
+                                   const float* frac, float* out, int64_t n,
+                                   void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (rows_bf16) {
+    brick_interp_kernel<Bf16><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const Bf16*>(rows), frac, out, n);
+  } else {
+    brick_interp_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const float*>(rows), frac, out, n);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
-extern "C" int sample_density_brick_launch(const float* atlas, const float* xyz,
-                                           float* out, int64_t n, int gx, int gy,
-                                           int gz, float splus_shift,
-                                           void* stream) {
-  sample_density_brick_kernel<<<blocks_for(n), kThreads, 0,
-                                static_cast<cudaStream_t>(stream)>>>(
-      atlas, xyz, out, n, gx, gy, gz, splus_shift);
+extern "C" int sample_density_brick_launch(const void* atlas, int atlas_bf16,
+                                           const float* xyz, float* out,
+                                           int64_t n, int gx, int gy, int gz,
+                                           float splus_shift, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (atlas_bf16) {
+    sample_density_brick_kernel<Bf16><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const Bf16*>(atlas), xyz, out, n, gx, gy, gz, splus_shift);
+  } else {
+    sample_density_brick_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
+        static_cast<const float*>(atlas), xyz, out, n, gx, gy, gz,
+        splus_shift);
+  }
   return static_cast<int>(cudaGetLastError());
 }

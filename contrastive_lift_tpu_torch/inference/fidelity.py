@@ -2,10 +2,13 @@
 
 Port of the dense half of ``tools/pq_fidelity_gate.py``: regenerate the
 checkpoint's deterministic synthetic scene, render its val frames with the
-dense fp32 config (no empty-space skipping, no top-k, fp32 heads and atlas),
-cluster the fast instance embeddings with mean-shift, and score PQ^scene
-against the scene's ground truth. ``run_dense`` returns the maps and the
-scores, so a run on the card can be held against the JAX package's numbers.
+dense fp32 config (no empty-space skipping, no top-k, fp32 heads and, unless
+asked for bf16 as the gate's ``--atlas_dtype`` does, an fp32 atlas), cluster
+the fast instance embeddings with mean-shift, and score PQ^scene against the
+scene's ground truth. ``run_dense`` returns the maps and the scores, so a run
+on the card can be held against the JAX package's numbers.
+``render_chunk`` gives the density kernel's inputs for one chunk of that
+render, for timing the kernel on the render's own samples.
 """
 from __future__ import annotations
 
@@ -14,10 +17,14 @@ import time
 from pathlib import Path
 
 import numpy as np
+import torch
 
 from ..config import Config
 from ..data.synthetic import make_synthetic_scene
 from ..metrics.panoptic_quality import panoptic_quality
+from ..ops.fused_grid import build_dense_density
+from ..renderer.render import normalize_coordinates, sample_points_in_box
+from ..utils.device import resolve_device
 from .cluster import cluster, create_instances_from_semantics
 from .render import load_model_for_inference, render_frames
 
@@ -96,22 +103,44 @@ def dense_config(rcfg):
         head_topk_semins=None, head_dtype="float32", atlas_dtype="float32")
 
 
-def load_dense(ckpt, scene, device="cuda"):
+def load_dense(ckpt, scene, device="cuda", atlas_dtype: str = "float32"):
     """(cfg, params, model config, dense render config, render state, meta)
-    of checkpoint ``ckpt`` for ``scene``, at the gate's step_ratio 0.25."""
+    of checkpoint ``ckpt`` for ``scene``, at the gate's step_ratio 0.25,
+    with a density atlas of ``atlas_dtype``."""
     cfg = e2e_config(scene.image_dim)
     params, mcfg, rcfg, state_r, meta = load_model_for_inference(
         ckpt, cfg, scene.num_semantic_classes, step_ratio=0.25,
         head_topk=None, device=device)
-    return cfg, params, mcfg, dense_config(rcfg), state_r, meta
+    rcfg = dataclasses.replace(dense_config(rcfg), atlas_dtype=atlas_dtype)
+    return cfg, params, mcfg, rcfg, state_r, meta
+
+
+def render_chunk(ckpt, scene, device="cuda", frame: int = 0,
+                 n_rays: int = CHUNK):
+    """The density kernel's inputs for the first chunk of ``run_dense``'s
+    render: (dense pre-activation density grid [gx,gy,gz], softplus shift,
+    the [n_rays * n_samples, 3] normalized coordinates of the first
+    ``n_rays`` rays of val frame ``frame``, exactly as ``render_rays`` passes
+    them to ``sample_density_brick``). The atlas is
+    ``ops/fused_grid.py::build_brick_atlas`` of the grid."""
+    dev = resolve_device(device)
+    _, params, mcfg, rcfg, state_r, _ = load_dense(ckpt, scene, dev)
+    rays = scene.val_frames[frame].rays.astype(np.float32)[:n_rays]
+    with torch.no_grad():
+        xyz, _, _ = sample_points_in_box(torch.from_numpy(rays).to(dev),
+                                         state_r, rcfg.n_samples)
+        xyz_n = normalize_coordinates(state_r, xyz).reshape(-1, 3)
+        return build_dense_density(params), mcfg.splus_density_shift, xyz_n
 
 
 def run_dense(ckpt, scene, device="cuda", bandwidth: float = BANDWIDTH,
-              chunk: int = CHUNK) -> dict:
-    """Dense render of ``scene``'s val frames from checkpoint ``ckpt``, then
-    clustering and PQ^scene. Returns the per-frame maps, the scores and the
-    seconds each stage took."""
-    cfg, params, mcfg, rcfg, state_r, meta = load_dense(ckpt, scene, device)
+              chunk: int = CHUNK, atlas_dtype: str = "float32") -> dict:
+    """Dense render of ``scene``'s val frames from checkpoint ``ckpt``, with
+    a density atlas of ``atlas_dtype``, then clustering and PQ^scene.
+    Returns the per-frame maps, the scores and the seconds each stage
+    took."""
+    cfg, params, mcfg, rcfg, state_r, meta = load_dense(ckpt, scene, device,
+                                                        atlas_dtype)
     t0 = time.perf_counter()
     frames = render_frames(params, mcfg, rcfg, state_r, scene.val_frames,
                            chunk=chunk, device=device)

@@ -80,7 +80,7 @@ def render_frames(params, mcfg, rcfg, state_r, frames: List[FrameData],
                          f"render_frames was asked for {dev}")
     results = []
     with torch.no_grad():
-        fused = build_render_grids(params)
+        fused = build_render_grids(params, rcfg.atlas_dtype)
         for fi, frame in enumerate(frames):
             rays = frame.rays.astype(np.float32)
             n = rays.shape[0]

@@ -15,10 +15,14 @@ Two entry points:
   the fused form the renderer calls, which finds each sample's atlas row
   itself.
 
+Rows and atlas are float32 or bfloat16, as the TPU kernel takes them
+(``pallas_interp.py`` casts its rows to float32 in the kernel body); the
+arithmetic is float32 after the load, and positions and outputs are float32.
 Each wrapper takes its plain PyTorch version (``*_reference``, the 128-lane
 hat reduction of the JAX code) only for tensors on the CPU; for a CUDA tensor
 it launches the kernel or raises. ``<wrapper>.launches`` counts kernel
-launches, so a run can show that it went through the kernel.
+launches and ``<wrapper>.dtype_launches`` splits them by row type, so a run
+can show that it went through the kernel; ``reset_launches()`` zeroes both.
 """
 from __future__ import annotations
 
@@ -32,6 +36,8 @@ from pathlib import Path
 import torch
 
 LANES = 128
+# row / atlas types the kernel takes, and the code its C entry points expect
+ROW_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _PKG = Path(__file__).resolve().parents[1]
 SOURCE = _PKG / "csrc" / "brick_interp.cu"
 BUILD_DIR = _PKG / "_build"
@@ -81,18 +87,26 @@ def _library():
     if _lib is None:
         lib = ctypes.CDLL(str(build()))
         p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
-        lib.brick_interp_launch.argtypes = [p, p, p, i64, p]
+        lib.brick_interp_launch.argtypes = [p, i32, p, p, i64, p]
         lib.brick_interp_launch.restype = i32
-        lib.sample_density_brick_launch.argtypes = [p, p, p, i64, i32, i32,
-                                                    i32, ctypes.c_float, p]
+        lib.sample_density_brick_launch.argtypes = [p, i32, p, p, i64, i32,
+                                                    i32, i32, ctypes.c_float, p]
         lib.sample_density_brick_launch.restype = i32
         _lib = lib
     return _lib
 
 
-def _check(name: str, t: torch.Tensor, width: int, device: torch.device):
+def _check_rows_dtype(name: str, t: torch.Tensor):
+    if t.dtype not in ROW_DTYPES:
+        raise TypeError(f"{name} must be float32 or bfloat16, got {t.dtype}")
+
+
+def _check_positions_dtype(name: str, t: torch.Tensor):
     if t.dtype != torch.float32:
         raise TypeError(f"{name} must be float32, got {t.dtype}")
+
+
+def _check(name: str, t: torch.Tensor, width: int, device: torch.device):
     if t.dim() != 2 or t.shape[1] != width:
         raise ValueError(f"{name} must be [N, {width}], got {tuple(t.shape)}")
     if t.device != device:
@@ -101,9 +115,22 @@ def _check(name: str, t: torch.Tensor, width: int, device: torch.device):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _check_rows(name: str, t: torch.Tensor, device: torch.device):
+    _check(name, t, LANES, device)
+    # the kernel reads rows in aligned 16-B chunks
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} must start at a 16-byte aligned address")
+
+
 def _raise_on(err: int, name: str):
     if err != 0:
         raise RuntimeError(f"{name} launch failed: cudaError {err}")
+
+
+def _count_launch(wrapper, dtype: torch.dtype):
+    wrapper.launches += 1
+    key = str(dtype).removeprefix("torch.")
+    wrapper.dtype_launches[key] = wrapper.dtype_launches.get(key, 0) + 1
 
 
 def brick_atlas_dims(grid_dim):
@@ -139,7 +166,10 @@ def brick_coords(grid_dim, xyz: torch.Tensor):
 
 
 def brick_interp_reference(rows: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
-    """Plain version of ``brick_interp``: the dense 128-lane hat reduction."""
+    """Plain version of ``brick_interp``: the dense 128-lane hat reduction,
+    in float32 after widening the rows."""
+    _check_rows_dtype("rows", rows)
+    _check_positions_dtype("frac", frac)
     return torch.sum(rows.to(torch.float32) * _hat_weights(frac), dim=1)
 
 
@@ -147,17 +177,22 @@ def sample_density_brick_reference(atlas: torch.Tensor, xyz: torch.Tensor,
                                    grid_dim, splus_shift: float) -> torch.Tensor:
     """Plain version of ``sample_density_brick``: row gather + 128-lane hat
     reduction, as the JAX package computes it."""
+    _check_rows_dtype("atlas", atlas)
+    _check_positions_dtype("xyz", xyz)
     row, frac = brick_coords(grid_dim, xyz)
     return brick_interp_reference(atlas[row], frac) + splus_shift
 
 
 def brick_interp(rows: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
-    """[P,128] brick rows + [P,3] in-brick positions -> [P] trilinear values."""
+    """[P,128] brick rows (float32 or bfloat16) + [P,3] float32 in-brick
+    positions -> [P] float32 trilinear values."""
     if rows.device.type == "cpu":
         return brick_interp_reference(rows, frac)
     if rows.device.type != "cuda":
         raise ValueError(f"brick_interp runs on cuda or cpu, not {rows.device}")
-    _check("rows", rows, LANES, rows.device)
+    _check_rows_dtype("rows", rows)
+    _check_positions_dtype("frac", frac)
+    _check_rows("rows", rows, rows.device)
     _check("frac", frac, 3, rows.device)
     n = rows.shape[0]
     if frac.shape[0] != n:
@@ -168,27 +203,27 @@ def brick_interp(rows: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:
     lib = _library()
     with torch.cuda.device(rows.device):
         stream = torch.cuda.current_stream().cuda_stream
-        err = lib.brick_interp_launch(rows.data_ptr(), frac.data_ptr(),
-                                      out.data_ptr(), n, stream)
+        err = lib.brick_interp_launch(rows.data_ptr(), ROW_DTYPES[rows.dtype],
+                                      frac.data_ptr(), out.data_ptr(), n,
+                                      stream)
     _raise_on(err, "brick_interp")
-    brick_interp.launches += 1
+    _count_launch(brick_interp, rows.dtype)
     return out
 
 
 def sample_density_brick(atlas: torch.Tensor, xyz: torch.Tensor, grid_dim,
                          splus_shift: float) -> torch.Tensor:
-    """Pre-activation density + shift at [P,3] coords in [-1,1] from the
-    brick atlas [B,128] of a grid of ``grid_dim`` voxels."""
+    """Pre-activation density + shift at [P,3] float32 coords in [-1,1] from
+    the brick atlas [B,128] (float32 or bfloat16) of a grid of ``grid_dim``
+    voxels; float32 out."""
     if atlas.device.type == "cpu":
         return sample_density_brick_reference(atlas, xyz, grid_dim, splus_shift)
     if atlas.device.type != "cuda":
         raise ValueError(f"sample_density_brick runs on cuda or cpu, not "
                          f"{atlas.device}")
-    if atlas.dtype != torch.float32:
-        raise NotImplementedError(
-            f"sample_density_brick: atlas dtype {atlas.dtype} (only float32 "
-            "is ported; atlas_dtype='bfloat16' is not)")
-    _check("atlas", atlas, LANES, atlas.device)
+    _check_rows_dtype("atlas", atlas)
+    _check_positions_dtype("xyz", xyz)
+    _check_rows("atlas", atlas, atlas.device)
     _check("xyz", xyz, 3, atlas.device)
     gx, gy, gz = (int(g) for g in grid_dim)
     bx, by, bz = brick_atlas_dims(grid_dim)
@@ -203,12 +238,21 @@ def sample_density_brick(atlas: torch.Tensor, xyz: torch.Tensor, grid_dim,
     with torch.cuda.device(atlas.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = lib.sample_density_brick_launch(
-            atlas.data_ptr(), xyz.data_ptr(), out.data_ptr(), n, gx, gy, gz,
-            float(splus_shift), stream)
+            atlas.data_ptr(), ROW_DTYPES[atlas.dtype], xyz.data_ptr(),
+            out.data_ptr(), n, gx, gy, gz, float(splus_shift), stream)
     _raise_on(err, "sample_density_brick")
-    sample_density_brick.launches += 1
+    _count_launch(sample_density_brick, atlas.dtype)
     return out
 
 
-brick_interp.launches = 0
-sample_density_brick.launches = 0
+KERNELS = (brick_interp, sample_density_brick)
+
+
+def reset_launches():
+    """Zero every wrapper's launch counts."""
+    for wrapper in KERNELS:
+        wrapper.launches = 0
+        wrapper.dtype_launches = {}
+
+
+reset_launches()

@@ -26,7 +26,7 @@ from . import brick_interp as bi
 class FusedGrids(NamedTuple):
     """Dense grids for one set of parameters (built once per render)."""
     grid_dim: Tuple[int, int, int]
-    brick_atlas: torch.Tensor           # [Bx*By*Bz, 128] f32
+    brick_atlas: torch.Tensor           # [Bx*By*Bz, 128] f32 or bf16
     features: Dict[str, torch.Tensor]   # branch -> [gx*gy*gz, out_dim]
 
 
@@ -61,12 +61,17 @@ def build_dense_feature(params: dict, name: str) -> torch.Tensor:
     return total.reshape(gx * gy * gz, f)
 
 
-def build_brick_atlas(dense: torch.Tensor) -> torch.Tensor:
-    """[gx,gy,gz] pre-activation density -> [Bx*By*Bz, 128] brick rows.
+def build_brick_atlas(dense: torch.Tensor,
+                      dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """[gx,gy,gz] pre-activation density -> [Bx*By*Bz, 128] brick rows of
+    ``dtype`` (float32 or bfloat16; rounded from the float32 grid).
 
     Brick (i,j,k) covers voxels [4i,4i+4]x[4j,..]x[4k,..]; its row holds the
     5^3 corner lattice at lane a*25+b*5+c (edge-clamped at grid boundaries),
-    zero-padded to 128 lanes. Port of ``_build_brick_atlas``."""
+    zero-padded to 128 lanes. Port of ``_build_brick_atlas(dense, dtype)``."""
+    if dtype not in bi.ROW_DTYPES:
+        raise TypeError(f"brick atlas dtype must be float32 or bfloat16, "
+                        f"got {dtype}")
     bx, by, bz = bi.brick_atlas_dims(dense.shape)
     idx = [torch.clamp(torch.arange(4 * b + 1, device=dense.device), max=g - 1)
            for b, g in zip((bx, by, bz), dense.shape)]
@@ -74,18 +79,26 @@ def build_brick_atlas(dense: torch.Tensor) -> torch.Tensor:
     corners = [padded[a:a + 4 * bx - 3:4, b:b + 4 * by - 3:4, c:c + 4 * bz - 3:4]
                for a in range(5) for b in range(5) for c in range(5)]
     atlas = torch.stack(corners, dim=-1).reshape(bx * by * bz, 125)
-    return torch.nn.functional.pad(atlas, (0, bi.LANES - 125))
+    return torch.nn.functional.pad(atlas, (0, bi.LANES - 125)).to(dtype)
 
 
-def build_render_grids(params: dict) -> FusedGrids:
-    """What the dense render reads: the density brick atlas and a dense
-    projected grid for every VM feature branch of ``params`` (appearance; the
-    semantic / instance branches of grid-head models)."""
+def build_render_grids(params: dict,
+                       atlas_dtype: str = "float32") -> FusedGrids:
+    """What the dense render reads: the density brick atlas, of
+    ``atlas_dtype`` (``RenderConfig.atlas_dtype``: "float32" or "bfloat16"),
+    and a dense projected grid for every VM feature branch of ``params``
+    (appearance; the semantic / instance branches of grid-head models)."""
     dense = build_dense_density(params)
     features = {name: build_dense_feature(params, name)
                 for name in ("appearance", "semantic", "instance")
                 if name in params}
-    return FusedGrids(tuple(dense.shape), build_brick_atlas(dense), features)
+    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
+        atlas_dtype)
+    if dtype is None:
+        raise ValueError(f"atlas_dtype must be 'float32' or 'bfloat16', got "
+                         f"{atlas_dtype!r}")
+    return FusedGrids(tuple(dense.shape), build_brick_atlas(dense, dtype),
+                      features)
 
 
 def sample_density_brick(fused: FusedGrids, xyz: torch.Tensor,

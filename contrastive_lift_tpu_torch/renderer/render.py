@@ -44,7 +44,7 @@ class RenderConfig:
     head_topk: Optional[int] = None
     head_topk_semins: Optional[int] = None
     head_dtype: str = "float32"             # float32|bfloat16 head matmuls
-    atlas_dtype: str = "float32"            # only float32 is ported
+    atlas_dtype: str = "float32"            # float32|bfloat16 density atlas
     # empty-space skipping (not ported: coarse_stride/sub_stride must be None)
     coarse_stride: Optional[int] = None
     max_segments: int = 48
@@ -105,8 +105,6 @@ def check_dense(rcfg: RenderConfig) -> None:
                 if getattr(rcfg, name) is not None]
     if rcfg.head_select != "sort":
         unported.append(f"head_select={rcfg.head_select!r}")
-    if rcfg.atlas_dtype != "float32":
-        unported.append(f"atlas_dtype={rcfg.atlas_dtype!r}")
     if unported:
         raise NotImplementedError(
             f"RenderConfig options not ported yet (dense path only): "

@@ -13,6 +13,16 @@ from contrastive_lift_tpu_torch.ops import brick_interp as bi
 from contrastive_lift_tpu_torch.ops import fused_grid as tfg
 
 
+DTYPES = [torch.float32, torch.bfloat16]
+# samples per block of the kernels (256 threads x 4 samples): sizes around
+# it, below it, and one sample
+SIZES = [1, 5, 1023, 1025, 4 * 1024 + 3]
+
+
+def _name(dtype):
+    return str(dtype).removeprefix("torch.")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -21,11 +31,12 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_kernels_match_plain_versions_on_card(cuda_device):
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     grid_dim = (131, 131, 121)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
     atlas = tfg.build_brick_atlas(torch.randn(grid_dim, generator=gen,
-                                              device=cuda_device))
+                                              device=cuda_device), dtype)
     xyz = torch.rand((100_000, 3), generator=gen, device=cuda_device) * 2.04 - 1.02
     n0 = bi.sample_density_brick.launches
     got = bi.sample_density_brick(atlas, xyz, grid_dim, -10.0)
@@ -44,12 +55,113 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
     grid_dim = (14, 14, 14)
     atlas = tfg.build_brick_atlas(torch.randn(grid_dim, device=cuda_device))
     xyz = torch.zeros((8, 3), device=cuda_device)
-    with pytest.raises(NotImplementedError, match="bfloat16"):
-        bi.sample_density_brick(atlas.bfloat16(), xyz, grid_dim, 0.0)
+    with pytest.raises(TypeError, match="float16"):
+        bi.sample_density_brick(atlas.half(), xyz, grid_dim, 0.0)
+    with pytest.raises(TypeError, match="float16"):
+        bi.brick_interp(atlas[:8].half(), xyz)
+    with pytest.raises(TypeError, match="bfloat16"):
+        bi.brick_interp(atlas[:8], xyz.bfloat16())
     with pytest.raises(ValueError, match="rows"):
         bi.sample_density_brick(atlas[:-1].contiguous(), xyz, grid_dim, 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         bi.brick_interp(atlas[:8], xyz.t().contiguous().t())
+    # rows are read in aligned 16-B chunks: a view 4 B into a buffer is refused
+    buf = torch.zeros(8 * 128 + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        bi.brick_interp(buf[1:].view(8, 128), xyz)
+
+
+def _frac_all_cells(n, gen, device):
+    """In-brick positions that visit all 64 lower corners (a0,b0,c0), so the
+    first lane of every corner pair sits at every offset in its 16-B chunk,
+    and a share of positions outside [0,4]^3 (clamped hat weights)."""
+    cell = torch.arange(n, device=device) % 64
+    lo = torch.stack([cell // 16, (cell // 4) % 4, cell % 4], 1).float()
+    frac = lo + torch.rand((n, 3), generator=gen, device=device)
+    out = torch.rand(n, generator=gen, device=device) < 0.1
+    frac[out] = torch.rand((int(out.sum()), 3), generator=gen,
+                           device=device) * 4.6 - 0.3
+    return frac.contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+def test_brick_interp_stress_on_card(cuda_device, dtype, n):
+    """Literal form, kernel against plain: 1e-5 absolute in f32; in bf16 the
+    same bar, since both sum in f32 the same widened values."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    rows = torch.randn((n, 128), generator=gen, device=cuda_device).to(dtype)
+    rows[:, 125:] = 0
+    frac = _frac_all_cells(n, gen, cuda_device)
+    n0 = bi.brick_interp.dtype_launches.get(_name(dtype), 0)
+    got = bi.brick_interp(rows, frac)
+    torch.cuda.synchronize()
+    assert bi.brick_interp.dtype_launches[_name(dtype)] == n0 + 1
+    torch.testing.assert_close(got, bi.brick_interp_reference(rows, frac),
+                               rtol=0, atol=1e-5)
+    # frac 4 B past a 16-B boundary: staged by scalar loads
+    buf = torch.empty(3 * n + 1, device=cuda_device)
+    buf[1:] = frac.view(-1)
+    torch.testing.assert_close(bi.brick_interp(rows, buf[1:].view(n, 3)), got,
+                               rtol=0, atol=0)
+
+
+def _xyz_cases(grid_dim, n, gen, device):
+    """Sample sets that drive each branch of the fused kernel's row sharing:
+    every warp on one row; no two lanes of a warp on one row; groups of 1-12
+    lanes; all 64 corner cells of a brick (every lane alignment); uniform
+    points with out-of-box ones."""
+    g = torch.tensor(grid_dim, dtype=torch.float32, device=device)
+
+    def to_xyz(p):   # voxel position -> normalized coordinate
+        return (p / (g - 1.0) * 2.0 - 1.0).contiguous()
+
+    brick = torch.tensor([1, 2, 1], dtype=torch.float32, device=device)
+    one_row = to_xyz(4.0 * brick + torch.rand((n, 3), generator=gen,
+                                              device=device) * 3.99)
+    nb = [-(-(d - 1) // 4) for d in grid_dim]
+    i = torch.arange(n, device=device)
+    bricks = torch.stack([i % nb[0], (i // nb[0]) % nb[1],
+                          (i // (nb[0] * nb[1])) % nb[2]], 1).float()
+    distinct = to_xyz(torch.minimum(4.0 * bricks + 0.5 + torch.rand(
+        (n, 3), generator=gen, device=device) * 3.0, g - 1.0))
+    group = torch.randint(1, 13, (n,), generator=gen, device=device)
+    gid = torch.repeat_interleave(torch.arange(n, device=device), group)[:n]
+    gbrick = torch.stack([gid % nb[0], (gid * 7 // nb[0]) % nb[1],
+                          (gid * 3) % nb[2]], 1).float()
+    grouped = to_xyz(torch.minimum(4.0 * gbrick + torch.rand(
+        (n, 3), generator=gen, device=device) * 4.0, g - 1.0))
+    cell = i % 64
+    lo = torch.stack([cell // 16, (cell // 4) % 4, cell % 4], 1).float()
+    cells = to_xyz(4.0 * brick + lo + 0.25 + 0.5 * torch.rand(
+        (n, 3), generator=gen, device=device))
+    uniform = torch.rand((n, 3), generator=gen, device=device) * 2.04 - 1.02
+    return {"one_row": one_row, "distinct_rows": distinct, "groups": grouped,
+            "all_cells": cells, "uniform": uniform}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", SIZES)
+def test_sample_density_brick_stress_on_card(cuda_device, dtype, n):
+    """Fused form, kernel against plain on every sample set of _xyz_cases:
+    1e-5 absolute (f32 sums of the same widened values in either type)."""
+    grid_dim = (29, 23, 17)
+    gen = torch.Generator(device=cuda_device).manual_seed(n)
+    atlas = tfg.build_brick_atlas(torch.randn(grid_dim, generator=gen,
+                                              device=cuda_device), dtype)
+    for name, xyz in _xyz_cases(grid_dim, n, gen, cuda_device).items():
+        got = bi.sample_density_brick(atlas, xyz, grid_dim, -3.0)
+        want = bi.sample_density_brick_reference(atlas, xyz, grid_dim, -3.0)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5,
+                                   msg=lambda m: f"{name}: {m}")
+        buf = torch.empty(3 * n + 1, device=cuda_device)
+        buf[1:] = xyz.view(-1)
+        torch.testing.assert_close(
+            bi.sample_density_brick(atlas, buf[1:].view(n, 3), grid_dim, -3.0),
+            got, rtol=0, atol=0, msg=lambda m: f"{name}, unaligned xyz: {m}")
 
 
 def _field(rng, grid=14, classes=2, inst=3):

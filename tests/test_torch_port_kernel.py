@@ -29,41 +29,95 @@ def _points(rng, n, lo=-1.0, hi=1.0):
     return pts.astype(np.float32)
 
 
+JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def _to_torch(x, dtype):
+    """A JAX array of ``dtype`` as a torch tensor of the same values (numpy
+    has no bf16: go through float32, which holds every bf16 value)."""
+    return torch.from_numpy(np.array(x, np.float32)).to(TORCH[dtype])
+
+
 def _dense(grid_dim, seed=0):
     return np.random.default_rng(seed).standard_normal(grid_dim).astype(np.float32)
 
 
-def test_brick_interp_reference_matches_pallas():
+def _pallas_vs_plain(dtype):
+    """Pallas ``brick_interp`` in interpret mode against the plain version on
+    the same rows of ``dtype``: both widen the rows and sum in float32, so
+    the bar is float32 rounding (the sums run in another order)."""
     rng = np.random.default_rng(3)
-    rows = rng.standard_normal((500, 128)).astype(np.float32)
+    rows = jnp.asarray(rng.standard_normal((500, 128)), JNP[dtype])
     frac = rng.uniform(0, 4, (500, 3)).astype(np.float32)
-    want = np.asarray(pallas_brick_interp(jnp.asarray(rows), jnp.asarray(frac),
+    want = np.asarray(pallas_brick_interp(rows, jnp.asarray(frac),
                                           interpret=True))
-    got = bi.brick_interp_reference(torch.from_numpy(rows), torch.from_numpy(frac))
+    got = bi.brick_interp_reference(_to_torch(rows, dtype),
+                                    torch.from_numpy(frac))
     np.testing.assert_allclose(got.numpy(), want, atol=1e-6, rtol=0)
 
 
-@pytest.mark.parametrize("grid_dim", [(14, 14, 14), (30, 17, 22)])
-def test_brick_atlas_equal(grid_dim):
-    """The atlas only moves data, so it is identical to JAX's (edge-clamped
-    padding on grids not divisible by the brick size included)."""
+def test_brick_interp_reference_matches_pallas():
+    _pallas_vs_plain("float32")
+
+
+def test_brick_interp_reference_matches_pallas_bf16_rows():
+    """The TPU kernel takes bf16 rows (cast to float32 in its body); so does
+    the port."""
+    _pallas_vs_plain("bfloat16")
+
+
+# existing cases keep their ids; the bf16 atlas cases are added beside them
+GRID_DTYPES = [((14, 14, 14), "float32"), ((30, 17, 22), "float32"),
+               ((14, 14, 14), "bfloat16"), ((30, 17, 22), "bfloat16")]
+GRID_DTYPE_IDS = ["grid_dim0", "grid_dim1", "grid_dim0-bfloat16",
+                  "grid_dim1-bfloat16"]
+
+
+@pytest.mark.parametrize("grid_dim,dtype", GRID_DTYPES, ids=GRID_DTYPE_IDS)
+def test_brick_atlas_equal(grid_dim, dtype):
+    """The atlas only moves data (and rounds it to bf16 in the bf16 case,
+    round to nearest even in both packages), so it is identical to JAX's
+    (edge-clamped padding on grids not divisible by the brick size
+    included)."""
     dense = _dense(grid_dim)
-    want = np.asarray(jfg._build_brick_atlas(jnp.asarray(dense)))
-    got = tfg.build_brick_atlas(torch.from_numpy(dense)).numpy()
+    want = jfg._build_brick_atlas(jnp.asarray(dense), JNP[dtype])
+    got = tfg.build_brick_atlas(torch.from_numpy(dense), TORCH[dtype])
+    assert got.dtype == TORCH[dtype]
     assert got.shape == (int(np.prod(bi.brick_atlas_dims(grid_dim))), 128)
-    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want, np.float32))
 
 
-@pytest.mark.parametrize("grid_dim", [(14, 14, 14), (30, 17, 22)])
-def test_sample_density_brick_matches_jax(grid_dim):
+@pytest.mark.parametrize("grid_dim,dtype", GRID_DTYPES, ids=GRID_DTYPE_IDS)
+def test_sample_density_brick_matches_jax(grid_dim, dtype):
+    """Plain version against the XLA ``sample_density_brick`` on the same
+    atlas: float32 rounding of 128-term sums (atol 1e-5), for either atlas
+    type, since both widen the same values."""
     dense = _dense(grid_dim, seed=1)
-    atlas = jfg._build_brick_atlas(jnp.asarray(dense))
+    atlas = jfg._build_brick_atlas(jnp.asarray(dense), JNP[dtype])
     fused = jfg.FusedGrids(None, grid_dim, {}, brick_atlas=atlas)
     pts = _points(np.random.default_rng(2), 4096)
     want = np.asarray(jfg.sample_density_brick(fused, jnp.asarray(pts), -10.0))
-    got = bi.sample_density_brick(torch.from_numpy(np.array(atlas)),
+    got = bi.sample_density_brick(_to_torch(atlas, dtype),
                                   torch.from_numpy(pts), grid_dim, -10.0)
+    assert got.dtype == torch.float32
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", [torch.float16, torch.float64])
+def test_other_row_dtypes_raise_naming_them(dtype):
+    grid_dim = (14, 14, 14)
+    atlas = tfg.build_brick_atlas(torch.from_numpy(_dense(grid_dim)))
+    xyz = torch.from_numpy(_points(np.random.default_rng(7), 64))
+    name = str(dtype).removeprefix("torch.")
+    with pytest.raises(TypeError, match=name):
+        bi.sample_density_brick(atlas.to(dtype), xyz, grid_dim, 0.0)
+    row, frac = bi.brick_coords(grid_dim, xyz)
+    with pytest.raises(TypeError, match=name):
+        bi.brick_interp(atlas[row].to(dtype), frac)
+    with pytest.raises(TypeError, match=name):
+        tfg.build_brick_atlas(torch.from_numpy(_dense(grid_dim)), dtype)
 
 
 def test_brick_coords_match_jax():
@@ -78,18 +132,19 @@ def test_brick_coords_match_jax():
 
 def test_cpu_wrappers_are_the_plain_versions():
     """On CPU tensors the wrappers compute the plain version and launch
-    nothing."""
+    nothing, for either row type."""
     grid_dim = (14, 14, 14)
-    atlas = tfg.build_brick_atlas(torch.from_numpy(_dense(grid_dim)))
     xyz = torch.from_numpy(_points(np.random.default_rng(5), 512))
     before = (bi.brick_interp.launches, bi.sample_density_brick.launches)
-    got = bi.sample_density_brick(atlas, xyz, grid_dim, 0.5)
-    want = bi.sample_density_brick_reference(atlas, xyz, grid_dim, 0.5)
-    torch.testing.assert_close(got, want, rtol=0, atol=0)
-    row, frac = bi.brick_coords(grid_dim, xyz)
-    torch.testing.assert_close(bi.brick_interp(atlas[row], frac),
-                               bi.brick_interp_reference(atlas[row], frac),
-                               rtol=0, atol=0)
+    for dtype in TORCH.values():
+        atlas = tfg.build_brick_atlas(torch.from_numpy(_dense(grid_dim)), dtype)
+        got = bi.sample_density_brick(atlas, xyz, grid_dim, 0.5)
+        want = bi.sample_density_brick_reference(atlas, xyz, grid_dim, 0.5)
+        torch.testing.assert_close(got, want, rtol=0, atol=0)
+        row, frac = bi.brick_coords(grid_dim, xyz)
+        torch.testing.assert_close(bi.brick_interp(atlas[row], frac),
+                                   bi.brick_interp_reference(atlas[row], frac),
+                                   rtol=0, atol=0)
     assert (bi.brick_interp.launches, bi.sample_density_brick.launches) == before
 
 

@@ -11,6 +11,7 @@ import sys
 from pathlib import Path
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -21,12 +22,14 @@ from contrastive_lift_tpu.data.synthetic import make_synthetic_scene as j_scene
 from contrastive_lift_tpu.factory import build_model
 from contrastive_lift_tpu.inference import render as jrender
 from contrastive_lift_tpu.io.checkpoint import save_checkpoint
+from contrastive_lift_tpu.ops import fused_grid as jfg
 from contrastive_lift_tpu_torch.config import Config as TConfig
 from contrastive_lift_tpu_torch.data.base import FrameData as TFrame
 from contrastive_lift_tpu_torch.data.synthetic import make_synthetic_scene as t_scene
 from contrastive_lift_tpu_torch.inference import cluster as tcluster
 from contrastive_lift_tpu_torch.inference import fidelity as tfid
 from contrastive_lift_tpu_torch.inference import render as trender
+from contrastive_lift_tpu_torch.ops import fused_grid as tfg
 from contrastive_lift_tpu_torch.renderer import render as tR
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
@@ -43,7 +46,11 @@ VARIANTS = {
                        semantic_weight_mode="argmax"),
     # no softmax postprocess, white background
     "white_bg": dict(semantic_weight_mode="none"),
+    # the r5b configuration with a bf16 density atlas (ATLAS_DTYPE)
+    "e2e_atlas_bf16": dict(),
 }
+# RenderConfig.atlas_dtype of a variant, where it is not float32
+ATLAS_DTYPE = {"e2e_atlas_bf16": "bfloat16"}
 
 
 def _cfg(Config, **kw):
@@ -79,32 +86,36 @@ def _rays(n, seed):
                           -1).astype(np.float32)
 
 
-def _dense(rcfg):
+def _dense(rcfg, atlas_dtype="float32"):
     return dataclasses.replace(rcfg, coarse_stride=None, sub_stride=None,
                                head_topk=None, head_topk_semins=None,
-                               head_dtype="float32", atlas_dtype="float32")
+                               head_dtype="float32", atlas_dtype=atlas_dtype)
 
 
 @pytest.mark.parametrize("variant", sorted(VARIANTS))
 def test_render_frames_matches_jax(tmp_path, variant):
     """Dense render, fused grids, device="cpu": maps within atol 2e-5 /
     rtol 1e-4 of the JAX package (fp32; the two sum in different orders).
-    A ray count that is not a multiple of the chunk exercises the padding."""
+    A ray count that is not a multiple of the chunk exercises the padding.
+    With a bf16 atlas the bar is the same: both packages round the same
+    float32 grid to the same bf16 atlas (checked here) and widen it to
+    float32 before any arithmetic."""
     kw = VARIANTS[variant]
+    atlas_dtype = ATLAS_DTYPE.get(variant, "float32")
     ckpt = _checkpoint(tmp_path / "field.npz", kw)
     white = variant == "white_bg"
     rays = [_rays(300, 1)]
     jp, jm, jr, js, _ = jrender.load_model_for_inference(
         ckpt, _cfg(JConfig, **kw), 2, white_bg=white, head_topk=None)
     want = jrender.render_frames(
-        jp, jm, _dense(jr), js,
+        jp, jm, _dense(jr, atlas_dtype), js,
         [JFrame(str(i), r, *([None] * 6)) for i, r in enumerate(rays)],
         chunk=128)
     tp, tm, tr, ts, _ = trender.load_model_for_inference(
         ckpt, _cfg(TConfig, **kw), 2, white_bg=white, head_topk=None,
         device="cpu")
     got = trender.render_frames(
-        tp, tm, _dense(tr), ts,
+        tp, tm, _dense(tr, atlas_dtype), ts,
         [TFrame(str(i), r, *([None] * 6)) for i, r in enumerate(rays)],
         chunk=128, device="cpu")
     for w, g in zip(want, got):
@@ -113,6 +124,14 @@ def test_render_frames_matches_jax(tmp_path, variant):
         for key in MAP_KEYS:
             np.testing.assert_allclose(g[key], w[key], atol=2e-5, rtol=1e-4,
                                        err_msg=f"{variant}: {key}")
+    if atlas_dtype != "float32":
+        j_atlas = jfg.build_render_grids(jp, jm, _dense(jr, atlas_dtype), js,
+                                         compact=False, atlas_dtype=jnp.bfloat16
+                                         ).brick_atlas
+        t_atlas = tfg.build_render_grids(tp, atlas_dtype).brick_atlas
+        assert t_atlas.dtype == torch.bfloat16
+        np.testing.assert_array_equal(t_atlas.float().numpy(),
+                                      np.asarray(j_atlas, np.float32))
 
 
 def test_synthetic_scene_matches_jax():
@@ -183,6 +202,35 @@ def test_run_dense_matches_jax_pipeline(tmp_path):
         pq, sq, rq, pq_m)
 
 
+@pytest.mark.parametrize("frame,n_rays", [(0, 64), (2, 100)])
+def test_render_chunk_is_what_render_rays_passes_the_kernel(tmp_path,
+                                                            monkeypatch,
+                                                            frame, n_rays):
+    """fidelity.render_chunk, which chip_smoke.py times the kernel on, gives
+    exactly the coordinates, shift and atlas grid of the dense render's first
+    chunk of a frame."""
+    ts = tfid.e2e_scene((16, 24), 2, 18.0)
+    ckpt = _checkpoint(tmp_path / "field.npz", {}, bbox=ts.scene_bounds)
+    seen = []
+    real = tR.sample_density_brick
+
+    def spy(fused, xyz, shift):
+        seen.append((fused.brick_atlas, xyz.clone(), shift))
+        return real(fused, xyz, shift)
+
+    monkeypatch.setattr(tR, "sample_density_brick", spy)
+    _, p, m, r, s, _ = tfid.load_dense(ckpt, ts, device="cpu")
+    trender.render_frames(p, m, r, s, ts.val_frames[frame:frame + 1],
+                          chunk=n_rays, device="cpu")
+    dense, shift, xyz = tfid.render_chunk(ckpt, ts, device="cpu", frame=frame,
+                                          n_rays=n_rays)
+    atlas, xyz_kernel, shift_kernel = seen[0]
+    assert xyz.shape == (n_rays * r.n_samples, 3)
+    assert torch.equal(xyz, xyz_kernel)
+    assert shift == shift_kernel
+    assert torch.equal(tfg.build_brick_atlas(dense), atlas)
+
+
 def test_unported_options_raise(tmp_path):
     ckpt = _checkpoint(tmp_path / "field.npz", {})
     cfg = _cfg(TConfig)
@@ -201,11 +249,17 @@ def test_unported_options_raise(tmp_path):
                      (dict(bake_heads=True), "bake_heads")):
         with pytest.raises(NotImplementedError, match=name):
             trender.render_frames(p, m, dense, s, frames, device="cpu", **kw)
+    # every unported option is refused; the bf16 atlas is ported and is not
     for field, value in (("head_topk", 8), ("fine_span_rows", 4),
-                         ("head_select", "rank"), ("atlas_dtype", "bfloat16")):
+                         ("head_select", "rank"), ("coarse_stride", 4),
+                         ("sub_stride", 2)):
         with pytest.raises(NotImplementedError, match=field):
             trender.render_frames(p, m, dataclasses.replace(dense, **{field: value}),
                                   s, frames, device="cpu")
+    tR.check_dense(dataclasses.replace(dense, atlas_dtype="bfloat16"))
+    assert trender.render_frames(
+        p, m, dataclasses.replace(dense, atlas_dtype="bfloat16"), s, frames,
+        device="cpu")[0]["rgb"].shape == (8, 3)
     rays = torch.from_numpy(_rays(8, 0))
     with pytest.raises(NotImplementedError, match="fused=None"):
         tR.render_rays(p, m, dense, s, rays)
