@@ -18,36 +18,42 @@
 // extrapolation). The sum runs over 8 terms instead of 128, in another order,
 // so results agree with the lane form to rounding, not bit for bit.
 //
-// What bounds each entry point on an H100, and what the design does about it
-// (about 70 flops per sample, so both are bound by memory traffic):
+// What bounds each entry point on an H100 and what the design does about it
+// (about 70 flops per sample: both are bound by memory, not arithmetic;
+// measurements in PERF.md):
 //
 // * brick_interp(rows [P,128], frac [P,3]): every sample has its own row,
 //   so the rows stream from device memory once (461 MB in float32 at the
-//   r5b chunk of 900,096 samples). The function needs 8 lanes of each row:
-//   lanes base+{0,1,5,6,25,26,30,31}, which lie in 2-5 of the row's 32-B
-//   sectors in float32 and 1-3 in bfloat16. A block stages its frac slice
-//   into shared memory with 16-B cp.async copies. Each (c0, c0+1) lane pair
-//   is one 16-B load of the aligned chunk holding lane c0, plus a 4-B load
-//   when lane c0+1 starts the next chunk; the loads are streaming
-//   (ld.global.nc.L1::no_allocate), since no row is read twice. Each thread
-//   handles 4 samples and issues all their loads (16-32) before it uses any.
+//   r5b chunk of 900,096 samples), and the function needs only the 8 lanes
+//   base+{0,1,5,6,25,26,30,31} of each, which lie in 2-5 of the row's 32-B
+//   sectors in float32 and 1-3 in bfloat16. Scattered reads like these are
+//   served by device memory 64 B at a time, so the count of 64-B pieces
+//   touched, not bytes, bounds the kernel. A block stages its frac slice
+//   into shared memory with 16-B cp.async copies; each thread handles 2
+//   samples and issues all their loads before it uses any; each (c0, c0+1)
+//   lane pair is one 16-B load of the aligned chunk holding lane c0, plus a
+//   4-B load when lane c0+1 starts the next chunk. A sample whose hat
+//   weights are all zero on some axis (far outside its brick, as a render's
+//   samples past the box are) loads nothing. The bfloat16 rows halve the
+//   bytes and touch fewer 64-B pieces.
 // * sample_density_brick(atlas [B,128], xyz [P,3]): finds each sample's row
-//   itself. The atlas (16.7 MB in float32 at r5b) fits in the 50 MB L2, so
-//   on random points the time goes to xyz in, the output out, and 8 L2
-//   gathers per sample. A render's samples are coherent: a ray's samples
-//   are a quarter voxel apart, so a warp's 32 consecutive samples fall into
-//   2-3 bricks. A block stages xyz like frac above; then, per round of 32
-//   samples, __match_any_sync groups the lanes of a warp that share a row.
-//   A group of at least kShareMin lanes has its row copied once, whole and
-//   coalesced (512 B in float32, 256 B in bfloat16), into shared memory by
-//   the whole warp, and reads its lanes there. The other lanes load their
-//   sectors directly (L1-cached 16-B loads), so random points lose nothing.
+//   itself. The atlas (16.7 MB in float32 at r5b) fits in the 50 MB L2; a
+//   render's samples are coherent (a ray's samples are a quarter voxel
+//   apart, so a warp's 32 samples fall into 2-3 rows), and the L1 merges
+//   the lanes' loads of one row in each load instruction. So on the
+//   render's samples the time goes to streaming xyz in and the output out,
+//   behind the latency of the dependent gathers. The kernel runs one wave
+//   of resident blocks that stride over the samples; each thread loads the
+//   next sample's coordinates before it gathers the current sample's 8
+//   corners (scalar read-only loads), so the coordinate stream stays in
+//   flight behind the gathers.
 //
 // Built by nvcc into a shared library with a plain C interface and bound with
 // ctypes (contrastive_lift_tpu_torch/ops/brick_interp.py). Each entry point
 // launches on the caller's stream and returns cudaGetLastError(). Row and
 // atlas pointers must be 16-B aligned (the wrapper checks); frac and xyz may
-// have any 4-B alignment (an unaligned slice is staged with scalar loads).
+// have any 4-B alignment (brick_interp stages an unaligned frac slice with
+// scalar loads).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,12 +62,9 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kSamplesPerThread = 4;
+// brick_interp: samples a thread handles, and a block's slice of them
+constexpr int kSamplesPerThread = 2;
 constexpr int kBlockSamples = kThreads * kSamplesPerThread;
-// Lanes of a warp that must share a row before the warp stages it whole.
-constexpr int kShareMin = 8;
-constexpr int kShareSlots = 32 / kShareMin;
 
 // bfloat16 as its bits: the kernels only widen it to float32.
 struct Bf16 {
@@ -102,6 +105,14 @@ __device__ __forceinline__ Cell cell_of(float fx, float fy, float fz) {
   return c;
 }
 
+// Whether every axis has a corner with non-zero weight: if not, the value is
+// 0 and no lane needs loading.
+__device__ __forceinline__ bool has_weight(const Cell& c) {
+  return (c.wa[0] != 0.0f || c.wa[1] != 0.0f) &&
+         (c.wb[0] != 0.0f || c.wb[1] != 0.0f) &&
+         (c.wc[0] != 0.0f || c.wc[1] != 0.0f);
+}
+
 // v[2p], v[2p+1]: the values at lanes base+pair_offset(p) and the next lane.
 __device__ __forceinline__ float blend(const Cell& c, const float v[8]) {
   float acc = 0.0f;
@@ -115,27 +126,15 @@ __device__ __forceinline__ float blend(const Cell& c, const float v[8]) {
 
 // ---- loads -----------------------------------------------------------------
 
-template <bool kStream>
-__device__ __forceinline__ uint4 load16(const void* p) {
-  if constexpr (kStream) {
-    uint4 v;
-    asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
-        : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-        : "l"(p));
-    return v;
+// Element l of a row in device memory, widened to float32 (read-only path).
+template <typename T>
+__device__ __forceinline__ float load_elem(const T* row, int l) {
+  if constexpr (sizeof(T) == 4) {
+    return __ldg(reinterpret_cast<const float*>(row) + l);
   } else {
-    return __ldg(static_cast<const uint4*>(p));
-  }
-}
-
-template <bool kStream>
-__device__ __forceinline__ uint32_t load4(const void* p) {
-  if constexpr (kStream) {
-    uint32_t v;
-    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
-    return v;
-  } else {
-    return __ldg(static_cast<const unsigned int*>(p));
+    const unsigned short b =
+        __ldg(reinterpret_cast<const unsigned short*>(row) + l);
+    return __uint_as_float(static_cast<uint32_t>(b) << 16);
   }
 }
 
@@ -180,16 +179,6 @@ __device__ __forceinline__ float word_elem(uint32_t w) {
   }
 }
 
-// Element l of a row in shared memory, widened to float32.
-template <typename T>
-__device__ __forceinline__ float smem_elem(const T* row, int l) {
-  if constexpr (sizeof(T) == 4) {
-    return row[l];
-  } else {
-    return __uint_as_float(static_cast<uint32_t>(row[l].bits) << 16);
-  }
-}
-
 // A sample's 8 corner values as loaded from device memory: for each pair,
 // the 16-B chunk holding its first lane and, when the second lane starts
 // the next chunk, the 4-B word holding that one.
@@ -198,16 +187,18 @@ struct PairChunks {
   uint32_t next[4];
 };
 
-template <typename T, bool kStream>
+template <typename T>
 __device__ __forceinline__ void load_corners(const T* row, int base,
                                              PairChunks& c) {
   constexpr int kE = kChunkElems<T>;
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     const int l = base + pair_offset(p);
-    c.chunk[p] = load16<kStream>(row + (l & ~(kE - 1)));
+    c.chunk[p] = __ldg(reinterpret_cast<const uint4*>(row + (l & ~(kE - 1))));
     c.next[p] = 0u;
-    if ((l & (kE - 1)) == kE - 1) c.next[p] = load4<kStream>(row + l + 1);
+    if ((l & (kE - 1)) == kE - 1) {
+      c.next[p] = __ldg(reinterpret_cast<const unsigned int*>(row + l + 1));
+    }
   }
 }
 
@@ -221,17 +212,6 @@ __device__ __forceinline__ void corner_values(const PairChunks& c, int base,
     v[2 * p] = chunk_elem<T>(c.chunk[p], r);
     v[2 * p + 1] = r == kE - 1 ? word_elem<T>(c.next[p])
                                : chunk_elem<T>(c.chunk[p], r + 1);
-  }
-}
-
-template <typename T>
-__device__ __forceinline__ void smem_values(const T* row, int base,
-                                            float v[8]) {
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int l = base + pair_offset(p);
-    v[2 * p] = smem_elem<T>(row, l);
-    v[2 * p + 1] = smem_elem<T>(row, l + 1);
   }
 }
 
@@ -255,8 +235,8 @@ __device__ __forceinline__ void stage_positions(float* s, const float* g,
 
 // ---- kernels ---------------------------------------------------------------
 
-// Thread t of a block handles samples t, t+256, t+512, t+768 of the block's
-// 1,024, so every load instruction of a warp covers 32 consecutive samples.
+// Thread t of a block handles samples t and t+256 of the block's 512, so
+// every load instruction of a warp covers 32 consecutive samples.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     brick_interp_kernel(const T* __restrict__ rows,
@@ -273,9 +253,12 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
   for (int k = 0; k < kSamplesPerThread; ++k) {
     const int j = k * kThreads + threadIdx.x;
+    chunks[k] = PairChunks{};
     if (j < nb) {
       cell[k] = cell_of(s_frac[3 * j], s_frac[3 * j + 1], s_frac[3 * j + 2]);
-      load_corners<T, true>(rows + (s0 + j) * kLanes, cell[k].base, chunks[k]);
+      if (has_weight(cell[k])) {
+        load_corners<T>(rows + (s0 + j) * kLanes, cell[k].base, chunks[k]);
+      }
     }
   }
 #pragma unroll
@@ -304,76 +287,76 @@ __device__ __forceinline__ int brick_row(const float g[3], int by, int bz,
   return (brick[0] * by + brick[1]) * bz + brick[2];
 }
 
+// The value at one sample from its atlas row: 8 scalar read-only gathers.
+template <typename T>
+__device__ __forceinline__ float interp_gather(const T* row, const Cell& c) {
+  float v[8];
+#pragma unroll
+  for (int p = 0; p < 4; ++p) {
+    const int l = c.base + pair_offset(p);
+    v[2 * p] = load_elem<T>(row, l);
+    v[2 * p + 1] = load_elem<T>(row, l + 1);
+  }
+  return blend(c, v);
+}
+
+// One wave of resident blocks strides over the samples; a thread loads the
+// next sample's coordinates before it gathers the current sample's corners.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     sample_density_brick_kernel(const T* __restrict__ atlas,
                                 const float* __restrict__ xyz,
                                 float* __restrict__ out, int64_t n, int gx,
                                 int gy, int gz, float splus_shift) {
-  constexpr int kE = kChunkElems<T>;
-  constexpr int kRowChunks = kLanes / kE;
-  __shared__ __align__(16) float s_xyz[3 * kBlockSamples];
-  __shared__ __align__(16) uint4 s_rows[kWarps][kShareSlots][kRowChunks];
-  const int64_t s0 = static_cast<int64_t>(blockIdx.x) * kBlockSamples;
-  const int nb = static_cast<int>(
-      n - s0 < kBlockSamples ? n - s0 : static_cast<int64_t>(kBlockSamples));
-  stage_positions(s_xyz, xyz + 3 * s0, 3 * nb);
-
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
   const float g[3] = {static_cast<float>(gx), static_cast<float>(gy),
                       static_cast<float>(gz)};
   const int by = (gy - 1 + 3) / 4;
   const int bz = (gz - 1 + 3) / 4;
-
-  for (int k = 0; k < kSamplesPerThread; ++k) {
-    const int j = k * kThreads + threadIdx.x;
-    const bool valid = j < nb;
-    float f[3] = {0.0f, 0.0f, 0.0f};
-    // lanes past the end get distinct negative keys and never group
-    int row = -1 - lane;
-    if (valid) row = brick_row(g, by, bz, s_xyz + 3 * j, f);
-    const Cell cell = cell_of(f[0], f[1], f[2]);
-
-    const unsigned peers = __match_any_sync(0xffffffffu, row);
-    const int leader = __ffs(peers) - 1;
-    const bool share = valid && __popc(peers) >= kShareMin;
-    const unsigned leaders = __ballot_sync(0xffffffffu, share && lane == leader);
-
-    PairChunks direct;
-    if (valid && !share) {
-      load_corners<T, false>(atlas + static_cast<int64_t>(row) * kLanes,
-                             cell.base, direct);
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
+  int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  float q[3] = {0.0f, 0.0f, 0.0f};
+  if (i < n) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) q[k] = __ldg(xyz + 3 * i + k);
+  }
+  for (; i < n; i += stride) {
+    float next[3] = {0.0f, 0.0f, 0.0f};
+    if (i + stride < n) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k) next[k] = __ldg(xyz + 3 * (i + stride) + k);
     }
-    // the warp copies each shared row whole, one 16-B chunk a lane
-    unsigned pending = leaders;
-    for (int slot = 0; pending != 0u; ++slot) {
-      const int src = __ffs(pending) - 1;
-      pending &= pending - 1u;
-      const int r = __shfl_sync(0xffffffffu, row, src);
-      if (lane < kRowChunks) {
-        cp_async16(&s_rows[warp][slot][lane],
-                   atlas + static_cast<int64_t>(r) * kLanes + lane * kE);
-      }
-    }
-    cp_async_wait_all();
-    __syncwarp();
-
-    float v[8];
-    if (share) {
-      const int slot = __popc(leaders & ((1u << leader) - 1u));
-      smem_values<T>(reinterpret_cast<const T*>(s_rows[warp][slot]),
-                     cell.base, v);
-    } else {
-      corner_values<T>(direct, cell.base, v);
-    }
-    if (valid) out[s0 + j] = blend(cell, v) + splus_shift;
-    __syncwarp();  // the slots are rewritten in the next round
+    float f[3];
+    const int row = brick_row(g, by, bz, q, f);
+    out[i] = interp_gather<T>(atlas + static_cast<int64_t>(row) * kLanes,
+                              cell_of(f[0], f[1], f[2])) +
+             splus_shift;
+#pragma unroll
+    for (int k = 0; k < 3; ++k) q[k] = next[k];
   }
 }
 
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kBlockSamples - 1) / kBlockSamples);
+}
+
+// Blocks of sample_density_brick_kernel<T> for n samples: one wave of as
+// many as the device keeps resident (found once per device), fewer when n
+// needs fewer.
+template <typename T>
+unsigned int resident_blocks(int64_t n) {
+  static int per_device[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  int& cap = per_device[dev & 63];
+  if (cap == 0) {
+    int sms = 0, per_sm = 0;
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, sample_density_brick_kernel<T>, kThreads, 0);
+    cap = sms * per_sm > 0 ? sms * per_sm : 1;
+  }
+  const int64_t need = (n + kThreads - 1) / kThreads;
+  return static_cast<unsigned int>(need < cap ? need : cap);
 }
 
 }  // namespace
@@ -399,10 +382,12 @@ extern "C" int sample_density_brick_launch(const void* atlas, int atlas_bf16,
                                            float splus_shift, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (atlas_bf16) {
-    sample_density_brick_kernel<Bf16><<<blocks_for(n), kThreads, 0, s>>>(
+    sample_density_brick_kernel<Bf16><<<resident_blocks<Bf16>(n), kThreads, 0,
+                                        s>>>(
         static_cast<const Bf16*>(atlas), xyz, out, n, gx, gy, gz, splus_shift);
   } else {
-    sample_density_brick_kernel<float><<<blocks_for(n), kThreads, 0, s>>>(
+    sample_density_brick_kernel<float><<<resident_blocks<float>(n), kThreads,
+                                         0, s>>>(
         static_cast<const float*>(atlas), xyz, out, n, gx, gy, gz,
         splus_shift);
   }

@@ -92,12 +92,8 @@ def build_render_grids(params: dict,
     features = {name: build_dense_feature(params, name)
                 for name in ("appearance", "semantic", "instance")
                 if name in params}
-    dtype = {"float32": torch.float32, "bfloat16": torch.bfloat16}.get(
-        atlas_dtype)
-    if dtype is None:
-        raise ValueError(f"atlas_dtype must be 'float32' or 'bfloat16', got "
-                         f"{atlas_dtype!r}")
-    return FusedGrids(tuple(dense.shape), build_brick_atlas(dense, dtype),
+    return FusedGrids(tuple(dense.shape),
+                      build_brick_atlas(dense, getattr(torch, atlas_dtype)),
                       features)
 
 

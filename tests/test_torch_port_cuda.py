@@ -14,9 +14,10 @@ from contrastive_lift_tpu_torch.ops import fused_grid as tfg
 
 
 DTYPES = [torch.float32, torch.bfloat16]
-# samples per block of the kernels (256 threads x 4 samples): sizes around
-# it, below it, and one sample
-SIZES = [1, 5, 1023, 1025, 4 * 1024 + 3]
+# one sample; sizes around brick_interp's 512-sample block; and more samples
+# than one wave of sample_density_brick's resident blocks holds (about 270k
+# on an H100: 132 SMs x 8 blocks x 256 threads), so its threads stride
+SIZES = [1, 5, 511, 513, 4 * 512 + 3, 600_001]
 
 
 def _name(dtype):
