@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port on one CUDA card and check it end to end.
 
-    python3 chip_smoke.py [--profile]
+    python3 chip_smoke.py [--profile] [--against SOURCE.cu ...]
 
 Phases, each printing JSON lines with their seconds:
 
@@ -24,12 +24,17 @@ Phases, each printing JSON lines with their seconds:
              leaves it) and L2-warm; the plain version's time; one library
              call's time (``F.grid_sample``, the same function; bf16 values
              upcast to float32 outside the timed call) as yardstick; the
-             bound (the bytes these inputs need over the HBM rate) and the
-             kernel's share of it; for the literal form the sector floor and
-             the 64-B pieces its corner lanes lie in; and two yardsticks of
-             the timing itself: an empty kernel, and one library copy that
-             reads the positions' memory and writes one float per sample
-             (their first column), the kernel's traffic without the rows;
+             bound (the bytes these inputs need over the HBM rate: each
+             needed row element once, positions in, values out) and the
+             kernel's share of it; the sector floor (the same with each
+             needed 32-B sector read whole); for the literal form the 64-B
+             pieces its corner lanes lie in; two yardsticks of the timing
+             itself: an empty kernel, and one library copy that reads the
+             positions' memory and writes one float per sample (their first
+             column), the kernel's traffic without the rows; and, with
+             ``--against``, the same kernel built from other sources of
+             ``brick_interp.cu`` (an earlier commit's), timed on the same
+             inputs in the same process;
 4. main    - the port's dense render of the committed r5b checkpoint on the
              4 val frames of its scene, then mean-shift and PQ^scene
              (``inference/fidelity.py::run_dense``), held against the JAX
@@ -152,16 +157,30 @@ def weighted(frac):
     return ((frac > -1.0) & (frac < 5.0)).all(dim=1)
 
 
+def corner_lanes(frac):
+    """[P,8] the lanes of each sample's 2x2x2 corners, ascending."""
+    import torch
+    lo = torch.clamp(torch.floor(frac), 0, 3).to(torch.int64)
+    base = lo[:, 0] * 25 + lo[:, 1] * 5 + lo[:, 2]
+    return base[:, None] + torch.tensor(CORNER_LANES, device=frac.device)
+
+
 def corner_blocks(frac, elem_bytes: int, block_bytes: int):
     """[P] count of distinct ``block_bytes`` blocks of its row that each
     sample's 8 corner lanes occupy (rows start on a block boundary); 0 for
     samples that need no row data."""
-    import torch
-    lo = torch.clamp(torch.floor(frac), 0, 3).to(torch.int64)
-    base = lo[:, 0] * 25 + lo[:, 1] * 5 + lo[:, 2]
-    lanes = base[:, None] + torch.tensor(CORNER_LANES, device=frac.device)
-    blocks = lanes * elem_bytes // block_bytes   # ascending along dim 1
+    blocks = corner_lanes(frac) * elem_bytes // block_bytes
     return (1 + (blocks[:, 1:] != blocks[:, :-1]).sum(dim=1)) * weighted(frac)
+
+
+def atlas_needs(row, frac, elem_bytes: int):
+    """(elements, 32-B sectors) of the atlas that samples with a non-zero
+    weight read, each counted once however many samples read it."""
+    import torch
+    w = weighted(frac)
+    elems = torch.unique(row[w, None] * 128 + corner_lanes(frac[w]))
+    return (int(elems.numel()),
+            int(torch.unique(elems * elem_bytes // SECTOR_BYTES).numel()))
 
 
 def scaled_err(got, ref, magnitude):
@@ -247,6 +266,77 @@ def time_case(kernel, plain, library, positions):
             "stream_ms": timed(lambda: positions[:, 0].clone())[0]}
 
 
+# other sources of csrc/brick_interp.cu (``--against``), timed beside the
+# repository's on the same inputs
+OTHER_SOURCES = []
+
+
+def other_library(source: Path):
+    """(library, takes_bf16) for another source of the kernel, built with the
+    repository's nvcc flags. A source whose C entry points take no row-type
+    argument (the float32-only interface) has takes_bf16 False."""
+    import ctypes
+    import hashlib
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+
+    text = source.read_bytes()
+    out = bi.BUILD_DIR / f"against_{hashlib.sha256(text).hexdigest()[:16]}.so"
+    if not out.exists():
+        bi.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        subprocess.run([bi._nvcc(), *bi.NVCC_FLAGS, "-o", str(out),
+                        str(source)], check=True, capture_output=True)
+    lib = ctypes.CDLL(str(out))
+    typed = b"int atlas_bf16" in text
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_int
+    row_type = [i32] if typed else []
+    lib.brick_interp_launch.argtypes = [p, *row_type, p, p, i64, p]
+    lib.sample_density_brick_launch.argtypes = [
+        p, *row_type, p, p, i64, i32, i32, i32, ctypes.c_float, p]
+    return lib, typed
+
+
+def other_call(source: Path, kname: str, rows, positions, *grid_args):
+    """A call of ``kname`` from another source on the same inputs as the
+    repository's wrapper, or None when that source does not take this row
+    type. Not counted as a launch of the repository's kernel."""
+    import torch
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+
+    lib, typed = other_library(source)
+    if rows.dtype != torch.float32 and not typed:
+        return None
+    n = positions.shape[0]
+    out = torch.empty(n, dtype=torch.float32, device=rows.device)
+    head = [rows.data_ptr()] + ([bi.ROW_DTYPES[rows.dtype]] if typed else [])
+    tail = []
+    if grid_args:
+        grid, shift = grid_args
+        tail = [*(int(g) for g in grid), float(shift)]
+
+    def call():
+        err = getattr(lib, kname + "_launch")(
+            *head, positions.data_ptr(), out.data_ptr(), n, *tail,
+            torch.cuda.current_stream().cuda_stream)
+        if err:
+            raise RuntimeError(f"{source} {kname}: cudaError {err}")
+        return out
+    return call
+
+
+def time_other(source: Path, kname: str, ref, magnitude, rows, positions,
+               *grid_args):
+    """Another source's kernel on the same inputs: its error against the
+    plain version and its time, measured as the repository's."""
+    call = other_call(source, kname, rows, positions, *grid_args)
+    if call is None:
+        return {"source": str(source), "ms": None}
+    got = call()
+    ms, spread = timed(call)
+    return {"source": str(source), "ms": ms, "ms_spread": spread,
+            "max_abs_err": float((got - ref).abs().max()),
+            "max_scaled_err": scaled_err(got, ref, magnitude)}
+
+
 def fused_case(dense, xyz, shift, dtype):
     import torch
     from contrastive_lift_tpu_torch.ops import brick_interp as bi
@@ -262,20 +352,26 @@ def fused_case(dense, xyz, shift, dtype):
     in_box = (xyz.abs() <= 1.0).all(dim=1)
     row, frac = bi.brick_coords(GRID, xyz)
     rows_touched = int(torch.unique(row[weighted(frac)]).numel())
+    elems, sectors = atlas_needs(row, frac, atlas.element_size())
     torch.cuda.synchronize()
-    # the rows these samples need, once; positions in, values out
-    b_ms, b_by = bound(rows_touched * atlas.shape[1] * atlas.element_size()
-                       + 16 * n, FLOPS_PER_SAMPLE * n)
+    # the atlas elements these samples need, once; positions in, values out
+    b_ms, b_by = bound(elems * atlas.element_size() + 16 * n,
+                       FLOPS_PER_SAMPLE * n)
+    floor_ms, _ = bound(SECTOR_BYTES * sectors + 16 * n, 0)
     rec = {"max_abs_err": float((got - ref).abs().max()),
            "max_scaled_err": scaled_err(got, ref, magnitude),
            "library_in_box_max_abs_err": float(
                (library() - got)[in_box].abs().max()),
            "out_of_box_samples": int((~in_box).sum()),
            "atlas_rows": atlas.shape[0], "rows_touched": rows_touched,
+           "elements_touched": elems, "sectors_touched": sectors,
            **time_case(lambda: bi.sample_density_brick(atlas, xyz, GRID, shift),
                        lambda: bi.sample_density_brick_reference(
                            atlas, xyz, GRID, shift), library, xyz),
-           "bound_ms": b_ms, "bound_by": b_by}
+           "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms,
+           "against": [time_other(src, "sample_density_brick", ref,
+                                  magnitude, atlas, xyz, GRID, shift)
+                       for src in OTHER_SOURCES]}
     return rec
 
 
@@ -315,7 +411,10 @@ def literal_case(dense, xyz, dtype):
            **time_case(lambda: bi.brick_interp(rows, frac),
                        lambda: bi.brick_interp_reference(rows, frac), library,
                        frac),
-           "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms}
+           "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms,
+           "against": [time_other(src, "brick_interp", ref, magnitude, rows,
+                                  frac)
+                       for src in OTHER_SOURCES]}
     return rec
 
 
@@ -385,8 +484,7 @@ def check_pq(runs, label: str):
 
 def launch_counts():
     from contrastive_lift_tpu_torch.ops import brick_interp as bi
-    return {k.__name__: dict(k.dtype_launches, total=k.launches)
-            for k in bi.KERNELS}
+    return {k.__name__: dict(k.dtype_launches) for k in bi.KERNELS}
 
 
 def phase_main():
@@ -553,7 +651,13 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm render of the main path")
+    ap.add_argument("--against", type=Path, nargs="*", default=[],
+                    metavar="SOURCE",
+                    help="other sources of csrc/brick_interp.cu (an earlier "
+                         "commit's) to time beside this one in the kernels "
+                         "phase")
     args = ap.parse_args()
+    OTHER_SOURCES.extend(args.against)
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this script "

@@ -16,7 +16,9 @@
 // a0 = clamp(floor(fx), 0, 3). The weights stay in the hat form, so samples
 // outside the box get the same clamped weights as the lane form (not linear
 // extrapolation). The sum runs over 8 terms instead of 128, in another order,
-// so results agree with the lane form to rounding, not bit for bit.
+// so results agree with the lane form to rounding, not bit for bit. A sample
+// whose hat weights are all zero on some axis (far outside its brick, as a
+// render's samples past the box are) has value 0 and loads no lane.
 //
 // What bounds each entry point on an H100 and what the design does about it
 // (about 70 flops per sample: both are bound by memory, not arithmetic;
@@ -26,34 +28,39 @@
 //   so the rows stream from device memory once (461 MB in float32 at the
 //   r5b chunk of 900,096 samples), and the function needs only the 8 lanes
 //   base+{0,1,5,6,25,26,30,31} of each, which lie in 2-5 of the row's 32-B
-//   sectors in float32 and 1-3 in bfloat16. Scattered reads like these are
-//   served by device memory 64 B at a time, so the count of 64-B pieces
-//   touched, not bytes, bounds the kernel. A block stages its frac slice
-//   into shared memory with 16-B cp.async copies; each thread handles 2
-//   samples and issues all their loads before it uses any; each (c0, c0+1)
-//   lane pair is one 16-B load of the aligned chunk holding lane c0, plus a
-//   4-B load when lane c0+1 starts the next chunk. A sample whose hat
-//   weights are all zero on some axis (far outside its brick, as a render's
-//   samples past the box are) loads nothing. The bfloat16 rows halve the
-//   bytes and touch fewer 64-B pieces.
+//   sectors in float32 and 1-3 in bfloat16. A block stages its frac slice
+//   into shared memory with 16-B cp.async copies. Each thread handles 4
+//   samples and issues all their loads (16-32) before it uses any. Each
+//   (c0, c0+1) lane pair is one 16-B load of the aligned chunk holding lane
+//   c0, plus a 4-B load when lane c0+1 starts the next chunk; the loads are
+//   streaming (ld.global.nc.L1::no_allocate), since no row is read twice.
+//   The bfloat16 rows halve the bytes.
 // * sample_density_brick(atlas [B,128], xyz [P,3]): finds each sample's row
-//   itself. The atlas (16.7 MB in float32 at r5b) fits in the 50 MB L2; a
+//   itself. The atlas (16.7 MB in float32 at r5b) fits in the 50 MB L2. A
 //   render's samples are coherent (a ray's samples are a quarter voxel
-//   apart, so a warp's 32 samples fall into 2-3 rows), and the L1 merges
-//   the lanes' loads of one row in each load instruction. So on the
-//   render's samples the time goes to streaming xyz in and the output out,
-//   behind the latency of the dependent gathers. The kernel runs one wave
-//   of resident blocks that stride over the samples; each thread loads the
-//   next sample's coordinates before it gathers the current sample's 8
-//   corners (scalar read-only loads), so the coordinate stream stays in
-//   flight behind the gathers.
+//   apart, so a warp's 32 consecutive samples fall into 2-3 rows); random
+//   points are not. Persistent warps walk over tiles of 64 consecutive
+//   samples. A warp stages its tile's xyz into shared memory with 16-B
+//   cp.async copies, and the next tile's while it gathers the current one.
+//   For each of its 2 rounds of 32 samples, __match_any_sync groups the
+//   lanes that share a row: a group of at least kShareMin (16) lanes has its
+//   row copied once, whole and coalesced (512 B in float32, 256 B in
+//   bfloat16), into a shared-memory slot of the warp (a row already staged
+//   in an earlier round is not copied again) and reads its lanes there. The
+//   other lanes, all of them on random points, gather their 8 lanes
+//   directly with read-only loads, so random traffic keeps the direct path.
+//   Both rounds' copies and gathers are issued before any is used. On the
+//   H100 the L1 already merges a warp's loads of one row within each load
+//   instruction, so the staging saves no bytes and costs a round trip: the
+//   lower the threshold, the slower the kernel on the render's samples
+//   (PERF.md).
 //
 // Built by nvcc into a shared library with a plain C interface and bound with
 // ctypes (contrastive_lift_tpu_torch/ops/brick_interp.py). Each entry point
 // launches on the caller's stream and returns cudaGetLastError(). Row and
-// atlas pointers must be 16-B aligned (the wrapper checks); frac and xyz may
-// have any 4-B alignment (brick_interp stages an unaligned frac slice with
-// scalar loads).
+// atlas pointers must be 16-B aligned (both are read in 16-B chunks; the
+// wrapper checks); frac and xyz may have any 4-B alignment (an unaligned
+// slice is staged with scalar loads).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -62,9 +69,17 @@ namespace {
 
 constexpr int kLanes = 128;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
 // brick_interp: samples a thread handles, and a block's slice of them
-constexpr int kSamplesPerThread = 2;
+constexpr int kSamplesPerThread = 4;
 constexpr int kBlockSamples = kThreads * kSamplesPerThread;
+// sample_density_brick: rounds of 32 samples in a warp's tile; lanes of a
+// round that must share a row before the warp stages it whole; rows a warp
+// can stage in one tile, so a staged group always finds a slot
+constexpr int kRounds = 2;
+constexpr int kTile = 32 * kRounds;
+constexpr int kShareMin = 16;
+constexpr int kRowSlots = kRounds * (32 / kShareMin);
 
 // bfloat16 as its bits: the kernels only widen it to float32.
 struct Bf16 {
@@ -126,6 +141,21 @@ __device__ __forceinline__ float blend(const Cell& c, const float v[8]) {
 
 // ---- loads -----------------------------------------------------------------
 
+// Streaming loads: read-only, and allocate nothing in L1.
+__device__ __forceinline__ uint4 load16_stream(const void* p) {
+  uint4 v;
+  asm("ld.global.nc.L1::no_allocate.v4.u32 {%0, %1, %2, %3}, [%4];"
+      : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+      : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t load4_stream(const void* p) {
+  uint32_t v;
+  asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
 // Element l of a row in device memory, widened to float32 (read-only path).
 template <typename T>
 __device__ __forceinline__ float load_elem(const T* row, int l) {
@@ -138,6 +168,16 @@ __device__ __forceinline__ float load_elem(const T* row, int l) {
   }
 }
 
+// Element l of a row in shared memory, widened to float32.
+template <typename T>
+__device__ __forceinline__ float smem_elem(const T* row, int l) {
+  if constexpr (sizeof(T) == 4) {
+    return row[l];
+  } else {
+    return __uint_as_float(static_cast<uint32_t>(row[l].bits) << 16);
+  }
+}
+
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n"
@@ -146,8 +186,15 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
                : "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `kPending` of this thread's newest copy groups are
+// still in flight.
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
 }
 
 // Elements of type T in one 16-B chunk.
@@ -194,11 +241,9 @@ __device__ __forceinline__ void load_corners(const T* row, int base,
 #pragma unroll
   for (int p = 0; p < 4; ++p) {
     const int l = base + pair_offset(p);
-    c.chunk[p] = __ldg(reinterpret_cast<const uint4*>(row + (l & ~(kE - 1))));
+    c.chunk[p] = load16_stream(row + (l & ~(kE - 1)));
     c.next[p] = 0u;
-    if ((l & (kE - 1)) == kE - 1) {
-      c.next[p] = __ldg(reinterpret_cast<const unsigned int*>(row + l + 1));
-    }
+    if ((l & (kE - 1)) == kE - 1) c.next[p] = load4_stream(row + l + 1);
   }
 }
 
@@ -215,28 +260,26 @@ __device__ __forceinline__ void corner_values(const PairChunks& c, int base,
   }
 }
 
-// Copies `count` floats of a block's [n,3] slice into shared memory: 16-B
-// cp.async copies when the slice is 16-B aligned (a block's slice starts at
-// a multiple of 12 KB, so it is whenever the tensor is), scalar otherwise.
-__device__ __forceinline__ void stage_positions(float* s, const float* g,
-                                                int count) {
+// Starts copying `count` floats from g to s, one 16-B cp.async copy per
+// chunk from threads `first`, `first + step`, ..., when g is 16-B aligned;
+// the rest, or all of it when g is not aligned, by scalar loads.
+__device__ __forceinline__ void stage_floats(float* s, const float* g,
+                                             int count, int first, int step) {
+  int done = 0;
   if ((reinterpret_cast<uintptr_t>(g) & 15u) == 0u) {
     const int nvec = count >> 2;
-    for (int v = threadIdx.x; v < nvec; v += kThreads) {
-      cp_async16(s + 4 * v, g + 4 * v);
-    }
-    for (int e = 4 * nvec + threadIdx.x; e < count; e += kThreads) s[e] = g[e];
-    cp_async_wait_all();
-  } else {
-    for (int e = threadIdx.x; e < count; e += kThreads) s[e] = g[e];
+    for (int v = first; v < nvec; v += step) cp_async16(s + 4 * v, g + 4 * v);
+    done = 4 * nvec;
   }
-  __syncthreads();
+  for (int e = done + first; e < count; e += step) s[e] = g[e];
 }
 
-// ---- kernels ---------------------------------------------------------------
+// ---- brick_interp ------------------------------------------------------------
 
-// Thread t of a block handles samples t and t+256 of the block's 512, so
-// every load instruction of a warp covers 32 consecutive samples.
+// Thread t of a block handles samples t, t+256, t+512, t+768 of the block's
+// 1,024, so every load instruction of a warp covers 32 consecutive samples.
+// A block's frac slice starts at a multiple of 12 KB, so it is 16-B aligned
+// whenever the tensor is.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     brick_interp_kernel(const T* __restrict__ rows,
@@ -246,7 +289,10 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t s0 = static_cast<int64_t>(blockIdx.x) * kBlockSamples;
   const int nb = static_cast<int>(
       n - s0 < kBlockSamples ? n - s0 : static_cast<int64_t>(kBlockSamples));
-  stage_positions(s_frac, frac + 3 * s0, 3 * nb);
+  stage_floats(s_frac, frac + 3 * s0, 3 * nb, threadIdx.x, kThreads);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
 
   Cell cell[kSamplesPerThread];
   PairChunks chunks[kSamplesPerThread];
@@ -272,6 +318,8 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+// ---- sample_density_brick ----------------------------------------------------
+
 // Mirrors contrastive_lift_tpu/ops/fused_grid.py::_brick_coords: the
 // sample's clamped cell picks the brick, f is the position inside it.
 __device__ __forceinline__ int brick_row(const float g[3], int by, int bz,
@@ -287,52 +335,132 @@ __device__ __forceinline__ int brick_row(const float g[3], int by, int bz,
   return (brick[0] * by + brick[1]) * bz + brick[2];
 }
 
-// The value at one sample from its atlas row: 8 scalar read-only gathers.
-template <typename T>
-__device__ __forceinline__ float interp_gather(const T* row, const Cell& c) {
-  float v[8];
-#pragma unroll
-  for (int p = 0; p < 4; ++p) {
-    const int l = c.base + pair_offset(p);
-    v[2 * p] = load_elem<T>(row, l);
-    v[2 * p + 1] = load_elem<T>(row, l + 1);
-  }
-  return blend(c, v);
+// Samples of tile t (kTile per tile) that exist among n.
+__device__ __forceinline__ int tile_size(int64_t t, int64_t n) {
+  const int64_t left = n - t * kTile;
+  return static_cast<int>(left < kTile ? left : static_cast<int64_t>(kTile));
 }
 
-// One wave of resident blocks strides over the samples; a thread loads the
-// next sample's coordinates before it gathers the current sample's corners.
+// Each warp walks over tiles of kTile consecutive samples; lane l handles
+// samples l and l+32 of a tile (one per round).
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     sample_density_brick_kernel(const T* __restrict__ atlas,
                                 const float* __restrict__ xyz,
                                 float* __restrict__ out, int64_t n, int gx,
                                 int gy, int gz, float splus_shift) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kE = kChunkElems<T>;
+  constexpr int kRowChunks = kLanes / kE;
+  // a tile's xyz starts at a multiple of 768 B: 16-B aligned whenever the
+  // tensor is
+  __shared__ __align__(16) float s_xyz[kWarps][3 * kTile];
+  __shared__ __align__(16) uint4 s_rows[kWarps][kRowSlots][kRowChunks];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* sx = s_xyz[warp];
   const float g[3] = {static_cast<float>(gx), static_cast<float>(gy),
                       static_cast<float>(gz)};
   const int by = (gy - 1 + 3) / 4;
   const int bz = (gz - 1 + 3) / 4;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kThreads;
-  int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  float q[3] = {0.0f, 0.0f, 0.0f};
-  if (i < n) {
-#pragma unroll
-    for (int k = 0; k < 3; ++k) q[k] = __ldg(xyz + 3 * i + k);
+  const int64_t n_tiles = (n + kTile - 1) / kTile;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kWarps;
+  int64_t tile = static_cast<int64_t>(blockIdx.x) * kWarps + warp;
+  if (tile < n_tiles) {
+    stage_floats(sx, xyz + 3 * tile * kTile, 3 * tile_size(tile, n), lane, 32);
   }
-  for (; i < n; i += stride) {
-    float next[3] = {0.0f, 0.0f, 0.0f};
-    if (i + stride < n) {
+  cp_async_commit();
+
+  for (; tile < n_tiles; tile += stride) {
+    cp_async_wait<0>();
+    __syncwarp();  // the tile's xyz is in shared memory, the slots are free
+    const int nt = tile_size(tile, n);
+    int row[kRounds];
+    Cell cell[kRounds];
+    bool live[kRounds];
 #pragma unroll
-      for (int k = 0; k < 3; ++k) next[k] = __ldg(xyz + 3 * (i + stride) + k);
+    for (int k = 0; k < kRounds; ++k) {
+      const int j = 32 * k + lane;
+      float f[3] = {0.0f, 0.0f, 0.0f};
+      row[k] = 0;
+      if (j < nt) row[k] = brick_row(g, by, bz, sx + 3 * j, f);
+      cell[k] = cell_of(f[0], f[1], f[2]);
+      live[k] = j < nt && has_weight(cell[k]);
     }
-    float f[3];
-    const int row = brick_row(g, by, bz, q, f);
-    out[i] = interp_gather<T>(atlas + static_cast<int64_t>(row) * kLanes,
-                              cell_of(f[0], f[1], f[2])) +
-             splus_shift;
+    __syncwarp();  // every lane has read the tile's xyz
+
+    // Stage the rows that kShareMin or more lanes of a round share; lane s
+    // keeps the row held in slot s, `used` slots are taken (at most
+    // 32 / kShareMin a round, so never more than kRowSlots).
+    int slot_row = -1;
+    int used = 0;
+    int slot[kRounds];
+    float v[kRounds][8];
 #pragma unroll
-    for (int k = 0; k < 3; ++k) q[k] = next[k];
+    for (int k = 0; k < kRounds; ++k) {
+      // lanes that need no row get keys that match nothing
+      const int key = live[k] ? row[k] : -1 - lane;
+      const unsigned peers = __match_any_sync(kAll, key);
+      const bool shares = live[k] && __popc(peers) >= kShareMin;
+      unsigned leaders =
+          __ballot_sync(kAll, shares && lane == __ffs(peers) - 1);
+      slot[k] = -1;
+      while (leaders != 0u) {
+        const int r = __shfl_sync(kAll, key, __ffs(leaders) - 1);
+        leaders &= leaders - 1u;
+        const unsigned held = __ballot_sync(kAll, slot_row == r);
+        int s = __ffs(held) - 1;
+        if (held == 0u) {
+          s = used++;
+          if (lane == s) slot_row = r;
+          if (lane < kRowChunks) {
+            cp_async16(&s_rows[warp][s][lane],
+                       atlas + static_cast<int64_t>(r) * kLanes + lane * kE);
+          }
+        }
+        if (shares && key == r) slot[k] = s;
+      }
+      if (live[k] && slot[k] < 0) {
+        const T* src = atlas + static_cast<int64_t>(row[k]) * kLanes;
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int l = cell[k].base + pair_offset(p);
+          v[k][2 * p] = load_elem<T>(src, l);
+          v[k][2 * p + 1] = load_elem<T>(src, l + 1);
+        }
+      }
+    }
+    cp_async_commit();
+    // the next tile's xyz streams in while this tile's rows are used
+    if (tile + stride < n_tiles) {
+      stage_floats(sx, xyz + 3 * (tile + stride) * kTile,
+                   3 * tile_size(tile + stride, n), lane, 32);
+    }
+    cp_async_commit();
+    cp_async_wait<1>();
+    __syncwarp();  // the staged rows are in shared memory
+
+#pragma unroll
+    for (int k = 0; k < kRounds; ++k) {
+      const int j = 32 * k + lane;
+      if (j >= nt) continue;
+      float value = 0.0f;
+      if (live[k]) {
+        if (slot[k] >= 0) {
+          const T* srow = reinterpret_cast<const T*>(s_rows[warp][slot[k]]);
+#pragma unroll
+          for (int p = 0; p < 4; ++p) {
+            const int l = cell[k].base + pair_offset(p);
+            v[k][2 * p] = smem_elem<T>(srow, l);
+            v[k][2 * p + 1] = smem_elem<T>(srow, l + 1);
+          }
+        }
+        value = blend(cell[k], v[k]);
+      }
+      out[tile * kTile + j] = value + splus_shift;
+    }
   }
+  cp_async_wait<0>();
 }
 
 inline unsigned int blocks_for(int64_t n) {
@@ -355,7 +483,7 @@ unsigned int resident_blocks(int64_t n) {
         &per_sm, sample_density_brick_kernel<T>, kThreads, 0);
     cap = sms * per_sm > 0 ? sms * per_sm : 1;
   }
-  const int64_t need = (n + kThreads - 1) / kThreads;
+  const int64_t need = (n + kWarps * kTile - 1) / (kWarps * kTile);
   return static_cast<unsigned int>(need < cap ? need : cap);
 }
 

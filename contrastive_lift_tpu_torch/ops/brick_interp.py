@@ -20,9 +20,9 @@ Rows and atlas are float32 or bfloat16, as the TPU kernel takes them
 arithmetic is float32 after the load, and positions and outputs are float32.
 Each wrapper takes its plain PyTorch version (``*_reference``, the 128-lane
 hat reduction of the JAX code) only for tensors on the CPU; for a CUDA tensor
-it launches the kernel or raises. ``<wrapper>.launches`` counts kernel
-launches and ``<wrapper>.dtype_launches`` splits them by row type, so a run
-can show that it went through the kernel; ``reset_launches()`` zeroes both.
+it launches the kernel or raises. ``<wrapper>.dtype_launches`` counts kernel
+launches by row type (``launch_total`` sums them), so a run can show that it
+went through the kernel; ``reset_launches()`` zeroes the counts.
 """
 from __future__ import annotations
 
@@ -117,7 +117,8 @@ def _check(name: str, t: torch.Tensor, width: int, device: torch.device):
 
 def _check_rows(name: str, t: torch.Tensor, device: torch.device):
     _check(name, t, LANES, device)
-    # the kernel reads rows in aligned 16-B chunks
+    # both kernels read rows in aligned 16-B chunks (brick_interp its corner
+    # pairs, sample_density_brick the rows a warp stages whole)
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start at a 16-byte aligned address")
 
@@ -128,7 +129,6 @@ def _raise_on(err: int, name: str):
 
 
 def _count_launch(wrapper, dtype: torch.dtype):
-    wrapper.launches += 1
     key = str(dtype).removeprefix("torch.")
     wrapper.dtype_launches[key] = wrapper.dtype_launches.get(key, 0) + 1
 
@@ -251,8 +251,12 @@ KERNELS = (brick_interp, sample_density_brick)
 def reset_launches():
     """Zero every wrapper's launch counts."""
     for wrapper in KERNELS:
-        wrapper.launches = 0
         wrapper.dtype_launches = {}
+
+
+def launch_total(wrapper) -> int:
+    """Launches of ``wrapper``'s kernel over all row types."""
+    return sum(wrapper.dtype_launches.values())
 
 
 reset_launches()

@@ -14,9 +14,10 @@ from contrastive_lift_tpu_torch.ops import fused_grid as tfg
 
 
 DTYPES = [torch.float32, torch.bfloat16]
-# one sample; sizes around brick_interp's 512-sample block; and more samples
-# than one wave of sample_density_brick's resident blocks holds (about 270k
-# on an H100: 132 SMs x 8 blocks x 256 threads), so its threads stride
+# one sample; sizes around brick_interp's 1,024-sample block and
+# sample_density_brick's 64-sample warp tile; and more samples than one pass
+# of sample_density_brick's resident warps covers (about 200k on an H100), so
+# each warp takes several tiles
 SIZES = [1, 5, 511, 513, 4 * 512 + 3, 600_001]
 
 
@@ -39,9 +40,9 @@ def test_kernels_match_plain_versions_on_card(cuda_device, dtype):
     atlas = tfg.build_brick_atlas(torch.randn(grid_dim, generator=gen,
                                               device=cuda_device), dtype)
     xyz = torch.rand((100_000, 3), generator=gen, device=cuda_device) * 2.04 - 1.02
-    n0 = bi.sample_density_brick.launches
+    n0 = bi.launch_total(bi.sample_density_brick)
     got = bi.sample_density_brick(atlas, xyz, grid_dim, -10.0)
-    assert bi.sample_density_brick.launches == n0 + 1
+    assert bi.launch_total(bi.sample_density_brick) == n0 + 1
     want = bi.sample_density_brick_reference(atlas, xyz, grid_dim, -10.0)
     torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
     row, frac = bi.brick_coords(grid_dim, xyz)
@@ -66,10 +67,15 @@ def test_kernel_wrappers_reject_what_the_kernel_does_not_take(cuda_device):
         bi.sample_density_brick(atlas[:-1].contiguous(), xyz, grid_dim, 0.0)
     with pytest.raises(ValueError, match="contiguous"):
         bi.brick_interp(atlas[:8], xyz.t().contiguous().t())
-    # rows are read in aligned 16-B chunks: a view 4 B into a buffer is refused
+    # rows are read in aligned 16-B chunks (the literal form's corner pairs,
+    # the rows the fused form stages whole): a view 4 B into a buffer is
+    # refused by both
     buf = torch.zeros(8 * 128 + 1, device=cuda_device)
     with pytest.raises(ValueError, match="aligned"):
         bi.brick_interp(buf[1:].view(8, 128), xyz)
+    buf = torch.zeros(atlas.numel() + 1, device=cuda_device)
+    with pytest.raises(ValueError, match="aligned"):
+        bi.sample_density_brick(buf[1:].view(atlas.shape), xyz, grid_dim, 0.0)
 
 
 def _frac_all_cells(n, gen, device):
@@ -225,12 +231,12 @@ def test_dense_render_on_card_matches_cpu(cuda_device):
     frames = [FrameData("0", rays, *([None] * 6))]
     maps = {}
     for dev in ("cpu", cuda_device):
-        n0 = bi.sample_density_brick.launches
+        n0 = bi.launch_total(bi.sample_density_brick)
         maps[str(dev)] = render_frames(
             params_from_numpy(tree, dev), mcfg, rcfg,
             make_render_state(bbox, (14,) * 3, 0.25, device=dev), frames,
             chunk=128, device=dev)[0]
-        launched = bi.sample_density_brick.launches - n0
+        launched = bi.launch_total(bi.sample_density_brick) - n0
         assert launched == (4 if dev == cuda_device else 0)
     for key, want in maps["cpu"].items():
         np.testing.assert_allclose(maps[str(cuda_device)][key], want,

@@ -135,7 +135,7 @@ def test_cpu_wrappers_are_the_plain_versions():
     nothing, for either row type."""
     grid_dim = (14, 14, 14)
     xyz = torch.from_numpy(_points(np.random.default_rng(5), 512))
-    before = (bi.brick_interp.launches, bi.sample_density_brick.launches)
+    before = [bi.launch_total(k) for k in bi.KERNELS]
     for dtype in TORCH.values():
         atlas = tfg.build_brick_atlas(torch.from_numpy(_dense(grid_dim)), dtype)
         got = bi.sample_density_brick(atlas, xyz, grid_dim, 0.5)
@@ -145,7 +145,7 @@ def test_cpu_wrappers_are_the_plain_versions():
         torch.testing.assert_close(bi.brick_interp(atlas[row], frac),
                                    bi.brick_interp_reference(atlas[row], frac),
                                    rtol=0, atol=0)
-    assert (bi.brick_interp.launches, bi.sample_density_brick.launches) == before
+    assert [bi.launch_total(k) for k in bi.KERNELS] == before
 
 
 def _chip_smoke():
