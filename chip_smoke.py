@@ -10,14 +10,19 @@ Phases, each printing JSON lines with their seconds:
              into ``contrastive_lift_tpu_torch/_build/``;
 3. kernels - both kernel entry points, on float32 and on bfloat16 rows,
              against their plain PyTorch versions on two input sets at the
-             r5b chunk shape (1,024 rays x 879 samples):
+             r5b dense chunk shape (1,024 rays x 879 samples):
              ``random``: a 131x131x121 N(0,1) density grid and samples
              uniform in [-1.02, 1.02]^3 (out-of-box samples included);
              ``render_chunk``: the r5b checkpoint's own density grid and the
              samples of the first 1,024 rays of val frame 0, exactly as the
-             render passes them to the kernel
-             (``inference/fidelity.py::render_chunk``).
-             The literal form gets the atlas rows gathered at those samples.
+             dense render passes them to the kernel
+             (``inference/fidelity.py::render_chunk``);
+             and the fused form on a third set, ``production_chunk``: the
+             pass-A samples of the first 4,096-ray chunk of the production
+             render of val frame 0 (4,096 rays x 12 sub-segments x 8 samples
+             at the calibrated budgets), exactly as ``_fine_density`` passes
+             them to the kernel (``inference/fidelity.py::production_chunk``).
+             The literal form gets the atlas rows gathered at the samples.
              One line per form x input set x type: the kernel's CUDA-event
              time as the median and spread of 5 repeats of a 20-launch loop,
              with the 50 MB L2 flushed before every launch (as the render
@@ -49,13 +54,27 @@ Phases, each printing JSON lines with their seconds:
              the golden (the bar of ``tools/pq_fidelity_gate.py
              --atlas_dtype bfloat16``); the maps' distance from the golden
              is printed, not gated;
-6. profile - only with ``--profile``: one more render of the 4 val frames
-             under ``torch.profiler``, with its wall and device seconds, the
-             idle share, device time by kernel kind (matmul, density
-             kernel, other) and the top kernels.
+6. main_production - the production render (``render_frames`` defaults:
+             empty-space skipping with calibrated budgets and two-pass
+             termination, top-8 bf16 heads with tail completion, chunks of
+             4,096 rays; ``inference/fidelity.py::run_production``), cold and
+             warm, TF32 off, then mean-shift and PQ^scene, held against the
+             eager JAX golden ``contrastive_lift_tpu_torch/testdata/
+             r5b_production_golden.npz``: calibrated budgets equal, maps
+             within 3e-2 (bf16 heads) at the golden's 2,048 rays, PQ^scene
+             and masked PQ within 0.5 pt, the same guardrail warnings (none
+             unless the golden raised one; compared by guardrail, the values
+             they quote are printed), and the float32 density kernel
+             launched; the warm rays/s is printed beside the dense path's;
+7. profile - only with ``--profile``: one more warm render of the 4 val
+             frames on the dense path and one on the production path under
+             ``torch.profiler``, each with its wall and device seconds, the
+             idle share, device time by kernel kind (matmul, density kernel,
+             sort/top-k, other elementwise) and the top kernels.
 
 Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
-on the render-chunk inputs) and, last, ``{"ok": true, "device": {...}}``.
+on the render-chunk inputs, the fused form also on the production chunk) and,
+last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -69,6 +88,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "contrastive_lift_tpu_torch" / "testdata" / "r5b_dense_golden.npz"
+PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
 TPU_KERNEL = "contrastive_lift_tpu/ops/pallas_interp.py:64"
 KERNEL_SOURCE = "contrastive_lift_tpu_torch/csrc/brick_interp.cu"
 
@@ -84,6 +104,9 @@ DTYPES = ("float32", "bfloat16")
 # * max(1, sum |row * w|)
 KERNEL_TOL = 1e-5
 MAP_TOL = 1e-3
+# bf16 heads against the JAX package's bf16 heads: the bar it accepts for
+# bf16 against fp32 heads
+BF16_MAP_TOL = 3e-2
 PQ_TOL = 0.005
 # H100 SXM peaks from NVIDIA's data sheet: HBM bytes/s, fp32 FLOP/s (non-tensor)
 HBM_BYTES_PER_S = 3.35e12
@@ -239,19 +262,31 @@ def phase_build():
 
 def kernel_inputs():
     """name -> (dense float32 grid [gx,gy,gz], xyz [P,3], splus shift)."""
+    import numpy as np
     import torch
     from contrastive_lift_tpu_torch.inference.fidelity import (
-        R5B_CKPT, R5B_SCENE, e2e_scene, render_chunk)
+        PRODUCTION_CHUNK, R5B_CKPT, R5B_SCENE, e2e_scene, production_chunk,
+        render_chunk)
     gen = torch.Generator(device="cuda").manual_seed(0)
     dense = torch.randn(GRID, generator=gen, device="cuda")
     xyz = torch.rand((SAMPLES_PER_CHUNK, 3), generator=gen,
                      device="cuda") * 2.04 - 1.02
-    chunk = render_chunk(R5B_CKPT, e2e_scene(*R5B_SCENE), device="cuda")
+    scene = e2e_scene(*R5B_SCENE)
+    chunk = render_chunk(R5B_CKPT, scene, device="cuda")
     if tuple(chunk[0].shape) != GRID or chunk[2].shape != xyz.shape:
         raise AssertionError(f"unexpected r5b chunk shapes "
                              f"{tuple(chunk[0].shape)} {tuple(chunk[2].shape)}")
+    prod = production_chunk(R5B_CKPT, scene, device="cuda")
+    with np.load(PRODUCTION_GOLDEN) as g:
+        # pass A: term_first sub-segments of 8 samples for every ray
+        n_prod = PRODUCTION_CHUNK * int(g["budget_term_first"]) * 8
+    if prod[2].shape != (n_prod, 3):
+        raise AssertionError(f"unexpected r5b production chunk shape "
+                             f"{tuple(prod[2].shape)}, expected {n_prod} "
+                             "samples")
     return {"random": (dense, xyz, -10.0),
-            "render_chunk": (chunk[0], chunk[2].contiguous(), chunk[1])}
+            "render_chunk": (chunk[0], chunk[2].contiguous(), chunk[1]),
+            "production_chunk": (prod[0], prod[2].contiguous(), prod[1])}
 
 
 def time_case(kernel, plain, library, positions):
@@ -428,10 +463,13 @@ def phase_kernels():
     empty_kernel_ms = timed(lambda: torch.cuda._sleep(0))[0]
     for inputs, (dense, xyz, shift) in kernel_inputs().items():
         for dtype in DTYPES:
-            for kname, case in (
-                    ("sample_density_brick",
-                     lambda: fused_case(dense, xyz, shift, dtype)),
-                    ("brick_interp", lambda: literal_case(dense, xyz, dtype))):
+            cases = [("sample_density_brick",
+                      lambda: fused_case(dense, xyz, shift, dtype))]
+            # the production path reads the atlas through the fused form only
+            if inputs != "production_chunk":
+                cases.append(("brick_interp",
+                              lambda: literal_case(dense, xyz, dtype)))
+            for kname, case in cases:
                 t0 = time.perf_counter()
                 rec = case()
                 rec["bound_share"] = rec["bound_ms"] / rec["ms"]
@@ -454,10 +492,10 @@ def phase_kernels():
     return records
 
 
-def golden():
-    """(ray index, golden maps, golden scores) of the JAX golden."""
+def golden(path=GOLDEN):
+    """(ray index, golden maps, golden scores) of a JAX golden."""
     import numpy as np
-    with np.load(GOLDEN) as g:
+    with np.load(path) as g:
         maps = {key: g[key] for key in ("rgb", "semantics", "instances",
                                         "depth")}
         scores = {key: float(g[key]) for key in ("pq_scene", "pq_masked",
@@ -465,16 +503,16 @@ def golden():
         return g["ray_index"], maps, scores
 
 
-def map_errors(res):
+def map_errors(res, path=GOLDEN):
     import numpy as np
-    idx, maps, _ = golden()
+    idx, maps, _ = golden(path)
     return {key: float(np.abs(np.concatenate(
         [f[key] for f in res["maps"]])[idx] - want).max())
         for key, want in maps.items()}
 
 
-def check_pq(runs, label: str):
-    gold = golden()[2]
+def check_pq(runs, label: str, path=GOLDEN):
+    gold = golden(path)[2]
     for key in ("pq_scene", "pq_masked"):
         for run in runs:
             if not abs(run[key] - gold[key]) <= PQ_TOL:
@@ -531,7 +569,7 @@ def phase_main():
             raise AssertionError(f"{key} map differs from the JAX golden by "
                                  f"{err} > {MAP_TOL}")
     check_pq((res, warm), "main")
-    return launches
+    return launches, n_rays / warm["render_seconds"]
 
 
 def phase_main_bf16_atlas():
@@ -565,6 +603,68 @@ def phase_main_bf16_atlas():
     return launches
 
 
+def phase_main_production(dense_warm_rays_per_second: float):
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        BUDGET_FIELDS, R5B_CKPT, R5B_SCENE, e2e_scene, guardrail,
+        run_production)
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = e2e_scene(*R5B_SCENE)
+    bi.reset_launches()
+    t0 = time.perf_counter()
+    res = run_production(R5B_CKPT, scene, device="cuda")
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    warm = run_production(R5B_CKPT, scene, device="cuda")
+    with np.load(PRODUCTION_GOLDEN) as g:
+        gold_budgets = {f: g[f"budget_{f}"].item() for f in BUDGET_FIELDS}
+        gold_warnings = [str(w) for w in g["warnings"]]
+        gold_tails = {k: float(g[k]) for k in ("budget_tail_max",
+                                               "head_tail_max")}
+    n_rays = sum(len(f.rays) for f in scene.val_frames)
+    map_err = map_errors(res, PRODUCTION_GOLDEN)
+    budgets = {f: getattr(res["rcfg"], f) for f in BUDGET_FIELDS}
+    emit({"phase": "main_production", "rays": n_rays, "launches": launches,
+          "budgets": budgets, "golden_budgets": gold_budgets,
+          "map_max_abs_err": map_err,
+          **{k: res[k] for k in ("pq_scene", "pq_masked", "sq", "rq",
+                                 "budget_tail", "head_tail", "warnings")},
+          "golden": golden(PRODUCTION_GOLDEN)[2], "golden_tails": gold_tails,
+          "golden_warnings": gold_warnings,
+          "render_seconds": res["render_seconds"],
+          "cluster_seconds": res["cluster_seconds"],
+          "rays_per_second": n_rays / res["render_seconds"],
+          "warm_render_seconds": warm["render_seconds"],
+          "warm_cluster_seconds": warm["cluster_seconds"],
+          "warm_rays_per_second": n_rays / warm["render_seconds"],
+          "dense_warm_rays_per_second": dense_warm_rays_per_second,
+          "warm_pq_scene": warm["pq_scene"],
+          "warm_pq_masked": warm["pq_masked"],
+          "seconds": seconds})
+    if launches["sample_density_brick"].get("float32", 0) < 1:
+        raise AssertionError("the production path never launched the "
+                             "float32 sample_density_brick kernel")
+    for run in (res, warm):
+        got = {f: getattr(run["rcfg"], f) for f in BUDGET_FIELDS}
+        if got != gold_budgets:
+            raise AssertionError(f"calibrated budgets {got} differ from the "
+                                 f"JAX golden's {gold_budgets}")
+        if ([guardrail(m) for m in run["warnings"]]
+                != [guardrail(m) for m in gold_warnings]):
+            raise AssertionError(f"guardrail warnings {run['warnings']}; the "
+                                 f"JAX golden raised {gold_warnings}")
+    for key, err in map_err.items():
+        if not err <= BF16_MAP_TOL:
+            raise AssertionError(f"production {key} map differs from the JAX "
+                                 f"golden by {err} > {BF16_MAP_TOL}")
+    check_pq((res, warm), "main_production", PRODUCTION_GOLDEN)
+    return launches
+
+
 def _device_us(event) -> float:
     # renamed from self_cuda_time_total in recent PyTorch releases
     for attr in ("self_device_time_total", "self_cuda_time_total"):
@@ -574,37 +674,33 @@ def _device_us(event) -> float:
 
 
 def _kernel_kind(name: str) -> str:
+    low = name.lower()
     if "sample_density_brick" in name or "brick_interp" in name:
         return "density_kernel"
-    if "gemm" in name.lower() or "cutlass" in name.lower():
+    if "gemm" in low or "cutlass" in low:
         return "matmul"
-    return "other"
+    if "sort" in low or "topk" in low or "radix" in low:
+        return "sort_topk"
+    return "other_elementwise"
 
 
-def phase_profile(top: int = 12):
-    """A warm render of the 4 val frames under torch.profiler: where the
-    device time goes, and the device's idle share."""
+def profile_render(label: str, render, rays: int, top: int = 12):
+    """One warm call of ``render`` under torch.profiler: where the device
+    time goes, and the device's idle share."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    from contrastive_lift_tpu_torch.inference.fidelity import (
-        CHUNK, R5B_CKPT, R5B_SCENE, e2e_scene, load_dense)
-    from contrastive_lift_tpu_torch.inference.render import render_frames
 
-    t0 = time.perf_counter()
-    scene = e2e_scene(*R5B_SCENE)
-    _, params, mcfg, rcfg, state_r, _ = load_dense(R5B_CKPT, scene)
-
-    def render():
-        render_frames(params, mcfg, rcfg, state_r, scene.val_frames,
-                      chunk=CHUNK)
+    def run():
+        render()
         torch.cuda.synchronize()
 
-    render()
+    t0 = time.perf_counter()
+    run()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t_wall = time.perf_counter()
-        render()
+        run()
         wall = time.perf_counter() - t_wall
     # kernel events only: a CPU op's own entry repeats its kernels' time
     kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
@@ -615,9 +711,10 @@ def phase_profile(top: int = 12):
         kind = _kernel_kind(kname)
         by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
     kernels.sort(key=lambda k: -k[1])
-    emit({"phase": "profile", "rays": sum(len(f.rays) for f in scene.val_frames),
+    emit({"phase": "profile", "path": label, "rays": rays,
           "wall_s": wall, "device_busy_s": busy_s,
           "idle_share": 1.0 - busy_s / wall, "device_ms_by_kind": by_kind,
+          "kernel_launches": sum(count for _, _, count in kernels),
           "top": [{"name": kname[:100], "device_ms": us / 1e3, "calls": count}
                   for kname, us, count in kernels[:top]],
           "seconds": time.perf_counter() - t0})
@@ -625,32 +722,64 @@ def phase_profile(top: int = 12):
         raise AssertionError("the profiler recorded no device time")
 
 
+def phase_profile():
+    """A warm render of the 4 val frames on the dense path and one on the
+    production path, each under torch.profiler."""
+    import torch
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        CHUNK, PRODUCTION_CHUNK, R5B_CKPT, R5B_SCENE, e2e_scene, load_dense,
+        load_production)
+    from contrastive_lift_tpu_torch.inference.render import render_frames
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = e2e_scene(*R5B_SCENE)
+    rays = sum(len(f.rays) for f in scene.val_frames)
+    for label, load, chunk in (("dense", load_dense, CHUNK),
+                               ("production", load_production,
+                                PRODUCTION_CHUNK)):
+        _, params, mcfg, rcfg, state_r, _ = load(R5B_CKPT, scene)
+        profile_render(label, lambda: render_frames(
+            params, mcfg, rcfg, state_r, scene.val_frames, chunk=chunk), rays)
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
-    on the render-chunk inputs (the main path's own) and its launches in the
-    render of that row type."""
+    on the render-chunk inputs (the dense main path's own) and its launches
+    in the dense render of that row type; the fused form also with its time
+    on the production chunk and its launches in ``main_production``."""
     entries = []
     for kname in ("brick_interp", "sample_density_brick"):
         for dtype in DTYPES:
             rec = records[(kname, "render_chunk", dtype)]
-            entries.append({
+            entry = {
                 "name": f"{kname}_{'f32' if dtype == 'float32' else 'bf16'}",
                 "dtype": dtype, "route": "cuda", "source": KERNEL_SOURCE,
                 "replaces": TPU_KERNEL,
                 "launches": launches[dtype][kname].get(dtype, 0),
-                "max_abs_err": max(records[(kname, inputs, dtype)]
-                                   ["max_abs_err"]
-                                   for inputs in ("random", "render_chunk")),
+                "max_abs_err": max(rec_["max_abs_err"] for (k, _, d), rec_
+                                   in records.items()
+                                   if k == kname and d == dtype),
                 **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms",
                                        "bound_by", "library_ms")},
-                "random_ms": records[(kname, "random", dtype)]["ms"]})
+                "random_ms": records[(kname, "random", dtype)]["ms"]}
+            prod = records.get((kname, "production_chunk", dtype))
+            if prod is not None:
+                entry.update(
+                    production_chunk_ms=prod["ms"],
+                    production_chunk_bound_ms=prod["bound_ms"],
+                    production_chunk_library_ms=prod["library_ms"],
+                    main_production_launches=launches["production"][kname]
+                    .get(dtype, 0))
+            entries.append(entry)
     return {"kernels": entries}
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
-                    help="also profile one warm render of the main path")
+                    help="also profile one warm render of the dense and of "
+                         "the production path")
     ap.add_argument("--against", type=Path, nargs="*", default=[],
                     metavar="SOURCE",
                     help="other sources of csrc/brick_interp.cu (an earlier "
@@ -663,7 +792,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    for needed in (GOLDEN, ROOT / KERNEL_SOURCE):
+    for needed in (GOLDEN, PRODUCTION_GOLDEN, ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
                   "the repository", file=sys.stderr)
@@ -672,8 +801,11 @@ def main() -> int:
     name = phase_device()
     phase_build()
     records = phase_kernels()
-    launches = {"float32": phase_main(),
-                "bfloat16": phase_main_bf16_atlas()}
+    dense_launches, dense_warm_rays_per_second = phase_main()
+    launches = {"float32": dense_launches,
+                "bfloat16": phase_main_bf16_atlas(),
+                "production": phase_main_production(
+                    dense_warm_rays_per_second)}
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

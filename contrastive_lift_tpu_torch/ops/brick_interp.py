@@ -173,14 +173,23 @@ def brick_interp_reference(rows: torch.Tensor, frac: torch.Tensor) -> torch.Tens
     return torch.sum(rows.to(torch.float32) * _hat_weights(frac), dim=1)
 
 
+# samples per step of the plain fused version: its [P,128] intermediates
+# take 512 B a sample, and a render's calibration probe passes millions
+REFERENCE_STEP = 1 << 20
+
+
 def sample_density_brick_reference(atlas: torch.Tensor, xyz: torch.Tensor,
                                    grid_dim, splus_shift: float) -> torch.Tensor:
     """Plain version of ``sample_density_brick``: row gather + 128-lane hat
-    reduction, as the JAX package computes it."""
+    reduction, as the JAX package computes it (``REFERENCE_STEP`` samples at
+    a time; each sample's value is computed on its own)."""
     _check_rows_dtype("atlas", atlas)
     _check_positions_dtype("xyz", xyz)
-    row, frac = brick_coords(grid_dim, xyz)
-    return brick_interp_reference(atlas[row], frac) + splus_shift
+    out = []
+    for part in torch.split(xyz, REFERENCE_STEP):
+        row, frac = brick_coords(grid_dim, part)
+        out.append(brick_interp_reference(atlas[row], frac) + splus_shift)
+    return torch.cat(out) if len(out) != 1 else out[0]
 
 
 def brick_interp(rows: torch.Tensor, frac: torch.Tensor) -> torch.Tensor:

@@ -1,20 +1,26 @@
-"""Volume renderer for the TensoRF panoptic field: the dense path.
+"""Volume renderer for the TensoRF panoptic field: dense and production paths.
 
-Port of the dense path of ``contrastive_lift_tpu/renderer/render.py``: every
-ray carries ``n_samples`` AABB-clipped uniform samples, the density of each
-goes through the brick-atlas kernel (``ops/brick_interp.py``), and every head
-runs on every sample, with samples below ``raymarch_weight_thres`` masked to
-zero. This is the fp32 render that ``tools/pq_fidelity_gate.py`` uses as its
-reference.
+Port of ``contrastive_lift_tpu/renderer/render.py`` at inference:
+
+* the dense path: every ray carries ``n_samples`` AABB-clipped uniform
+  samples, the density of each goes through the brick-atlas kernel
+  (``ops/brick_interp.py``), and every head runs on every sample, with
+  samples below ``raymarch_weight_thres`` masked to zero (the fp32 reference
+  of ``tools/pq_fidelity_gate.py``);
+* the production path (``coarse_stride`` / ``sub_stride``, L2-only
+  selection): the sub-segments of each ray are tested against the bit-packed
+  tight occupancy, the fine density runs only at the nearest occupied ones
+  (through the same kernel), optionally in two passes with early termination
+  (``term_first``), and with ``head_topk`` the heads run only on the k
+  heaviest samples per ray, optionally in two phases (``head_term_first``),
+  with tail completion (``head_tail_complete``).
 
 ``RenderConfig`` keeps every field of the JAX config so the two compare field
-by field. The empty-space-skipping, top-k and two-phase head fields select
-paths that are not ported yet: ``render_rays`` raises ``NotImplementedError``
-naming the field when one is set.
+by field; ``check_ported`` names the options whose paths are not ported.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -22,8 +28,9 @@ import torch
 
 from ..models import tensorf as tf
 from ..ops.compositing import composite, distortion_loss, raw_to_alpha
-from ..ops.fused_grid import (FusedGrids, sample_density_brick,
-                              sample_feature_fused)
+from ..ops.fused_grid import (FusedGrids, sample_coarse_occ,
+                              sample_density_brick, sample_feature_fused,
+                              sample_occ_bits_grouped)
 
 
 @dataclass(frozen=True)
@@ -40,12 +47,12 @@ class RenderConfig:
     alpha_mask_threshold: float = 0.0075
     perturb: float = 1.0
     white_bg: bool = False
-    # top-k head compaction (not ported: must be None here)
+    # top-k head compaction
     head_topk: Optional[int] = None
     head_topk_semins: Optional[int] = None
     head_dtype: str = "float32"             # float32|bfloat16 head matmuls
     atlas_dtype: str = "float32"            # float32|bfloat16 density atlas
-    # empty-space skipping (not ported: coarse_stride/sub_stride must be None)
+    # empty-space skipping; the L1 segment level (use_l1) is not ported
     coarse_stride: Optional[int] = None
     max_segments: int = 48
     occ_alpha_thres: float = 1e-5
@@ -59,7 +66,8 @@ class RenderConfig:
     l2_flat_group: int = 0
     term_first: int = 0
     term_fraction: float = 0.25
-    # two-phase heads and the other top-k refinements (not ported)
+    # two-phase heads, tail completion; dedup, iter/rank select and span
+    # gathers are not ported
     head_term_first: int = 0
     head_term_fraction: float = 0.25
     head_tail_complete: bool = False
@@ -97,18 +105,24 @@ class RenderConfig:
                              f"got {self.atlas_dtype!r}")
 
 
-def check_dense(rcfg: RenderConfig) -> None:
+def check_ported(rcfg: RenderConfig, two_level: bool = True) -> None:
     """Raise ``NotImplementedError`` naming each set option whose path is not
-    ported (the dense path runs with all of them off)."""
-    unported = [name for name in ("coarse_stride", "sub_stride", "head_topk",
-                                  "head_dedup_cells", "fine_span_rows")
+    ported. ``two_level``: whether the render selects samples with
+    empty-space skipping (``coarse_stride`` with occupancy tables)."""
+    unported = [name for name in ("head_dedup_cells", "fine_span_rows")
                 if getattr(rcfg, name) is not None]
     if rcfg.head_select != "sort":
         unported.append(f"head_select={rcfg.head_select!r}")
+    if two_level and rcfg.coarse_stride is not None:
+        if rcfg.sub_stride is None or rcfg.sub_stride >= rcfg.coarse_stride:
+            unported.append("coarse_stride without a finer sub_stride (the "
+                            "L1 segment selection)")
+        elif rcfg.use_l1:
+            unported.append("use_l1=True (the L1 segment cascade; "
+                            "render_frames(l2_only=True) selects L2-only)")
     if unported:
         raise NotImplementedError(
-            f"RenderConfig options not ported yet (dense path only): "
-            f"{', '.join(unported)}")
+            f"RenderConfig options not ported yet: {', '.join(unported)}")
 
 
 class RenderState(NamedTuple):
@@ -148,18 +162,28 @@ def normalize_coordinates(state: RenderState, xyz: torch.Tensor) -> torch.Tensor
     return (xyz - state.bbox_aabb[0]) * state.inv_box_extent - 1.0
 
 
-def sample_points_in_box(rays, state: RenderState, n_samples: int):
-    """AABB-clipped uniform samples along each ray, without jitter.
-
-    rays [R, 8] = [o, d, near, far]. Returns (xyz [R,S,3], z_vals [R,S],
-    in_box mask [R,S])."""
+def _ray_tmin(state: RenderState, rays: torch.Tensor):
+    """(origins, directions, AABB entry parameter clipped to [near, far])."""
     rays_o, rays_d = rays[:, 0:3], rays[:, 3:6]
     nears, fars = rays[:, 6], rays[:, 7]
     vec = torch.where(rays_d == 0, torch.full_like(rays_d, 1e-6), rays_d)
     rate_a = (state.bbox_aabb[1] - rays_o) / vec
     rate_b = (state.bbox_aabb[0] - rays_o) / vec
     t_min = torch.amax(torch.minimum(rate_a, rate_b), dim=-1)
-    t_min = torch.minimum(torch.maximum(t_min, nears), fars)
+    return rays_o, rays_d, torch.minimum(torch.maximum(t_min, nears), fars)
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    # log(1 + e^x), as jax.nn.softplus: F.softplus is the identity above 20
+    return torch.logaddexp(x, torch.zeros((), device=x.device))
+
+
+def sample_points_in_box(rays, state: RenderState, n_samples: int):
+    """AABB-clipped uniform samples along each ray, without jitter.
+
+    rays [R, 8] = [o, d, near, far]. Returns (xyz [R,S,3], z_vals [R,S],
+    in_box mask [R,S])."""
+    rays_o, rays_d, t_min = _ray_tmin(state, rays)
     steps = torch.arange(n_samples, dtype=torch.float32,
                          device=rays.device)[None, :]
     z_vals = t_min[:, None] + steps * state.step_size
@@ -186,11 +210,306 @@ def _density_weights(mcfg, rcfg, state, rays, fused: FusedGrids):
     xyz_n = normalize_coordinates(state, xyz)
     raw = sample_density_brick(fused, xyz_n.reshape(-1, 3),
                                mcfg.splus_density_shift)
-    # softplus as log(1 + e^x): F.softplus switches to the identity above 20
-    sigma = torch.logaddexp(raw, torch.zeros((), device=raw.device))
-    sigma = torch.where(in_box, sigma.reshape(xyz.shape[:2]), 0.0)
+    sigma = torch.where(in_box, _softplus(raw).reshape(xyz.shape[:2]), 0.0)
     _, weight, _ = raw_to_alpha(sigma, dists * rcfg.distance_scale)
     return xyz_n, z_vals, dists, mids, weight
+
+
+def occ_grouping_for(rcfg: RenderConfig, state: RenderState,
+                     supervoxel: int = 4) -> RenderConfig:
+    """Group sizes of the occupancy tests that one neighborhood row can serve:
+    a group of G consecutive tests fits when its advance (G-1) * stride *
+    step stays within 4 supervoxels of the smallest-unit axis. Host-side.
+    Port of ``occ_grouping_for``."""
+    if rcfg.coarse_stride is None:
+        return rcfg
+    min_unit = float(state.units.min())
+    step = float(state.step_size)
+    # the tolerance shrinks the admitted span: a group that overshoots the
+    # neighborhood by a float sliver would read an empty pad bit
+    margin = 4 * supervoxel * min_unit * (1 - 1e-6)
+    adv1 = rcfg.coarse_stride * step
+    g1 = min(8, int(margin / adv1) + 1) if adv1 > 0 else 0
+    g2_ok = (rcfg.sub_stride is not None
+             and (rcfg.coarse_stride - rcfg.sub_stride) * step <= margin)
+    adv2 = (rcfg.sub_stride or 0) * step
+    g2f = min(8, int(margin / adv2) + 1) if adv2 > 0 else 0
+    return replace(rcfg, occ_group_l1=g1 if g1 >= 2 else 0, occ_group_l2=g2_ok,
+                   l2_flat_group=g2f if g2f >= 2 else 0)
+
+
+def _occ_alpha_test(mcfg, rcfg: RenderConfig, state: RenderState, raw_up):
+    """occupied = per-sample alpha of the density upper bound > threshold."""
+    sigma_up = _softplus(raw_up + mcfg.splus_density_shift)
+    alpha_up = 1.0 - torch.exp(-sigma_up * state.step_size * rcfg.distance_scale)
+    return alpha_up > rcfg.occ_alpha_thres
+
+
+def _first_k_set(mask: torch.Tensor, k: int):
+    """Per-row indices of the first ``k`` True entries, in order: mask [R, C]
+    -> (idx [R, k] clamped to C-1, valid [R, k]). A cumsum and a count."""
+    pos = torch.cumsum(mask.to(torch.int32), dim=1)                # [R, C]
+    targets = torch.arange(1, k + 1, device=mask.device)
+    # idx of the j-th set bit = number of candidates whose rank is below j
+    idx = torch.sum(pos[:, :, None] < targets, dim=1)              # [R, k]
+    valid = targets[None, :] <= pos[:, -1:]
+    return torch.clamp(idx, max=mask.shape[1] - 1), valid
+
+
+def _select_subsegments(mcfg, rcfg: RenderConfig, state: RenderState,
+                        rays_o, rays_d, t_min, fused: FusedGrids):
+    """L2-only selection: every sub-segment of ``sub_stride`` samples is a
+    candidate, its midpoint is tested against the tight occupancy (one
+    neighborhood row per ``l2_flat_group`` consecutive candidates), and the
+    first ``max_subsegments`` occupied ones are kept. The L2-flat
+    (``seg_idx is None``) branch of ``_select_subsegments``.
+
+    Returns (fine_steps [R, k_sub, sub] in sample steps, sample_valid
+    [R, k_sub, sub], needed [R] occupied candidates per ray)."""
+    S = rcfg.n_samples
+    sub = rcfg.sub_stride
+    R = rays_o.shape[0]
+    cand = -(-S // sub)
+    g = rcfg.l2_flat_group if fused.occ_bits_group_tight is not None else 0
+    candp = -(-cand // g) * g if g >= 2 else cand
+    # pad candidates lie further along the ray (same spacing, so the group
+    # span holds); their tests are sliced away
+    sub_steps_p = (torch.arange(candp, dtype=torch.float32,
+                                device=rays_o.device) * sub + 0.5 * sub)
+    z_s = t_min[:, None] + sub_steps_p[None, :] * state.step_size
+    xyz_s = rays_o[:, None, :] + rays_d[:, None, :] * z_s[..., None]
+    xyz_sn = normalize_coordinates(state, xyz_s)
+    if g >= 2:
+        occ2 = sample_occ_bits_grouped(fused, xyz_sn, g, tight=True)[:, :cand]
+    else:
+        raw_up2 = sample_coarse_occ(fused, xyz_sn.reshape(-1, 3),
+                                    tight=True).reshape(R, candp)[:, :cand]
+        occ2 = _occ_alpha_test(mcfg, rcfg, state, raw_up2)
+    occ2 = occ2 & (sub_steps_p[None, :cand] < S)
+    sub_idx, sub_valid = _first_k_set(occ2, min(rcfg.max_subsegments, cand))
+    # candidate j starts at sample step j * sub
+    offs = torch.arange(sub, dtype=torch.float32, device=rays_o.device)
+    fine_steps = (sub_idx.to(torch.float32) * sub)[..., None] + offs
+    sample_valid = (fine_steps < S) & sub_valid[..., None]
+    return fine_steps, sample_valid, torch.sum(occ2, dim=1)
+
+
+def fine_positions(state: RenderState, rays_o, rays_d, t_min, fine_steps,
+                   sample_valid):
+    """(z_vals [R,K], in_box [R,K], xyz_n [R,K,3]) of the selected fine
+    samples: the positions ``_fine_density`` passes to the density kernel."""
+    R = rays_o.shape[0]
+    z_vals = (t_min[:, None, None] + fine_steps * state.step_size).reshape(R, -1)
+    xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
+    in_box = torch.all((xyz >= state.bbox_aabb[0]) & (xyz <= state.bbox_aabb[1]),
+                       dim=-1) & sample_valid.reshape(R, -1)
+    return z_vals, in_box, normalize_coordinates(state, xyz)
+
+
+def _fine_density(mcfg, rcfg: RenderConfig, state: RenderState,
+                  rays_o, rays_d, t_min, fused: FusedGrids,
+                  fine_steps, sample_valid):
+    """Exact density at the selected fine samples through the brick-atlas
+    kernel, then compositing weights (brick-atlas branch of
+    ``_fine_density``). Returns (xyz_n, z_vals, in_box, dists, mids, alpha,
+    weight, bg_weight)."""
+    R = rays_o.shape[0]
+    z_vals, in_box, xyz_n = fine_positions(state, rays_o, rays_d, t_min,
+                                           fine_steps, sample_valid)
+    raw = sample_density_brick(fused, xyz_n.reshape(-1, 3),
+                               mcfg.splus_density_shift)
+    sigma = torch.where(in_box, _softplus(raw).reshape(R, -1), 0.0)
+    # per-sample interval = step (uniform marching), as in the dense path
+    dists = state.step_size.expand_as(z_vals)
+    mids = z_vals + 0.5 * state.step_size
+    alpha, weight, bg_weight = raw_to_alpha(sigma, dists * rcfg.distance_scale)
+    return xyz_n, z_vals, in_box, dists, mids, alpha, weight, bg_weight
+
+
+def _tail_weight(weight: torch.Tensor, group: int) -> torch.Tensor:
+    """Max over rays of the compositing weight in the deepest kept group: the
+    budget-truncation guardrail (0 on a well-calibrated scene)."""
+    return torch.amax(torch.sum(weight[:, -group:], dim=-1))
+
+
+def _two_level_density(mcfg, rcfg: RenderConfig, state: RenderState,
+                       rays: torch.Tensor, fused: FusedGrids):
+    """Density with empty-space skipping: L2-only selection, then the fine
+    density in one pass, or in two with early termination (``term_first``):
+    pass A on every ray's first ``term_first`` sub-segments, pass B on the
+    ``term_fraction`` rays with the largest residual transmittance among those
+    with candidates left, spliced by T_B *= T_A. Port of
+    ``_two_level_density`` (its heavy/light bucketing and L1 cascade raise).
+
+    Returns (xyz_n, z_vals, in_box, dists, mids, alpha, weight, bg_weight,
+    budget_tail) with K = max_subsegments * sub_stride samples per ray."""
+    R = rays.shape[0]
+    rays_o, rays_d, t_min = _ray_tmin(state, rays)
+    fine_steps, sample_valid, _ = _select_subsegments(
+        mcfg, rcfg, state, rays_o, rays_d, t_min, fused)
+    group = rcfg.sub_stride
+    k_sub = fine_steps.shape[1]
+    kA = rcfg.term_first
+    if 0 < kA < k_sub:
+        n_s = max(1, min(R, int(round(R * rcfg.term_fraction))))
+        out_a = _fine_density(mcfg, rcfg, state, rays_o, rays_d, t_min, fused,
+                              fine_steps[:, :kA], sample_valid[:, :kA])
+        T_res = out_a[7][:, 0]
+        # survivors: the largest residuals among rays with occupied
+        # candidates left (a ray that missed all geometry keeps T = 1 but
+        # has nothing to add). Stable sorts, as jnp.argsort: many rays tie
+        # at -1, and the survivor set must be the JAX package's
+        has_tail = sample_valid[:, kA:].flatten(1).any(dim=1)
+        T_live = torch.where(has_tail, T_res, -1.0)
+        order = torch.argsort(T_live, stable=True)
+        inv = torch.argsort(order, stable=True)
+        surv = order[R - n_s:]
+        out_b = list(_fine_density(mcfg, rcfg, state, rays_o[surv],
+                                   rays_d[surv], t_min[surv], fused,
+                                   fine_steps[surv, kA:],
+                                   sample_valid[surv, kA:]))
+        # transmittance is multiplicative across contiguous rank blocks
+        t_surv = T_res[surv][:, None]
+        out_b[6] = out_b[6] * t_surv
+        out_b[7] = out_b[7] * t_surv
+
+        def expand(b):
+            # zero rows for the rays that stopped, back in input ray order
+            pad = torch.zeros((R - n_s,) + b.shape[1:], dtype=b.dtype,
+                              device=b.device)
+            return torch.cat([pad, b])[inv]
+
+        merged = [torch.cat([out_a[i], expand(out_b[i])], dim=1)
+                  for i in range(7)]
+        # a ray that stopped sends its residual to the background
+        survived = torch.zeros(R, dtype=torch.bool, device=rays.device)
+        survived[surv] = True
+        merged.append(torch.where(survived[:, None], expand(out_b[7]),
+                                  T_res[:, None]))
+        # a stopped ray's missing weight is at most its residual
+        tail = _tail_weight(out_b[6], group)
+        if n_s < R:
+            tail = torch.maximum(
+                tail, torch.amax(torch.clamp(T_live[order[:R - n_s]], min=0.0)))
+        return tuple(merged) + (tail,)
+    hn = int(round(R * rcfg.heavy_fraction))
+    if 0 < rcfg.max_subsegments_light < k_sub and 0 < hn < R:
+        raise NotImplementedError(
+            "max_subsegments_light > 0 (heavy/light ray bucketing) is not "
+            "ported; render with termination (term_first), as "
+            "render_frames(termination=True) calibrates")
+    out = _fine_density(mcfg, rcfg, state, rays_o, rays_d, t_min, fused,
+                        fine_steps, sample_valid)
+    return out + (_tail_weight(out[6], group),)
+
+
+def _needed_budget(weight: torch.Tensor, group: int, eps: float) -> torch.Tensor:
+    """Per ray, the deepest nearest-first rank of ``group`` samples whose
+    weight exceeds ``eps``: [R, K*group] -> [R]."""
+    w_rank = weight.reshape(weight.shape[0], -1, group).sum(-1)   # [R, K]
+    ranks = torch.arange(1, w_rank.shape[1] + 1, device=weight.device)
+    return torch.amax(torch.where(w_rank > eps, ranks, 0), dim=1)
+
+
+def _needed_budget_bounded(weight: torch.Tensor, group: int,
+                           tail_eps: float) -> torch.Tensor:
+    """Per ray, the smallest rank prefix whose truncation leaves less than
+    ``tail_eps`` of compositing weight behind: [R, K*group] -> [R]."""
+    w_rank = weight.reshape(weight.shape[0], -1, group).sum(-1)   # [R, K]
+    cum = torch.cumsum(w_rank, dim=1)
+    return torch.sum(cum[:, -1:] - cum >= tail_eps, dim=1) + 1
+
+
+def calibrate_budgets(mcfg, rcfg: RenderConfig, state: RenderState,
+                      probe_rays, fused: FusedGrids,
+                      quantile: float = 0.999, margin: int = 2,
+                      round_to: int = 4, weight_eps: float = 1e-3,
+                      termination: bool = False, tail_eps: float = 0.0,
+                      head_term: bool = False,
+                      head_tail_eps: float = 2e-3) -> RenderConfig:
+    """Scene-adaptive budgets from the density of probe rays (no heads):
+    ``max_subsegments`` at the ``quantile`` of the per-ray need (the
+    deepest rank carrying weight above ``weight_eps``, or with ``tail_eps``
+    the proven residual bound at the probe max), plus ``margin``, rounded;
+    with ``termination`` the pass-A budget and survivor fraction of least
+    expected cost; otherwise the heavy/light light budget; with
+    ``head_term`` the two-phase head split, adopted only on a 15% expected
+    saving. Port of ``calibrate_budgets`` (L2-only selection; its L1
+    segment budget raises)."""
+    check_ported(rcfg)
+    if rcfg.coarse_stride is None or fused.coarse_occ is None:
+        return rcfg
+    probe = torch.as_tensor(np.asarray(probe_rays, np.float32),
+                            device=fused.brick_atlas.device)
+    cs = rcfg.coarse_stride
+    S_c = -(-rcfg.n_samples // cs)
+
+    def need_of(w, group):
+        if tail_eps > 0:
+            return _needed_budget_bounded(w, group, tail_eps)
+        return _needed_budget(w, group, weight_eps)
+
+    def pick_q(needed, cap, q):
+        need = int(np.quantile(needed, q)) + margin
+        need = -(-need // round_to) * round_to
+        return max(8, min(cap, need))
+
+    def pick(needed, cap):
+        # the bounded need is a per-ray proof: honor its max
+        return pick_q(needed, cap, 1.0 if tail_eps > 0 else quantile)
+
+    # L2-only: every segment is a candidate
+    out = replace(rcfg, max_segments=S_c)
+    sub = rcfg.sub_stride
+    cand = out.max_segments * (cs // sub)
+    full2 = replace(out, max_subsegments=cand, max_subsegments_light=0,
+                    term_first=0)
+    w2 = _two_level_density(mcfg, full2, state, probe, fused)[6]
+    needed2 = need_of(w2, sub).cpu().numpy()
+    out = replace(out, max_subsegments=pick(needed2, cand))
+    if termination:
+        # pass-A budget kA minimizing kA + P(need > kA) * margin * (k_sub -
+        # kA); the survivor fraction gets 1.5x plus a floor for drift
+        k_sub = out.max_subsegments
+        best = None
+        for q in (0.5, 0.625, 0.75, 0.875):
+            kA = max(4, min(k_sub - round_to,
+                            -(-int(np.quantile(needed2, q)) // round_to)
+                            * round_to))
+            frac = min(1.0, float((needed2 > kA).mean()) * 1.5 + 1 / 64)
+            cost = kA + frac * (k_sub - kA)
+            if best is None or cost < best[0]:
+                best = (cost, kA, frac)
+        if best is not None and best[1] < k_sub:
+            out = replace(out, term_first=best[1], term_fraction=best[2],
+                          max_subsegments_light=0)
+    elif out.heavy_fraction > 0:
+        light = pick_q(needed2, cand, 1.0 - out.heavy_fraction / 2)
+        if light < out.max_subsegments:
+            out = replace(out, max_subsegments_light=light)
+    if head_term and out.head_topk is not None:
+        # pass-A head budget minimizing kA + P(dropped mass > head_tail_eps)
+        # * margin * (head_topk - kA), with the same drift margin
+        k = min(out.head_topk, w2.shape[1])
+        w_kp = torch.sort(w2, dim=1, descending=True).values[:, :k]
+        w_kp = w_kp.cpu().numpy()
+        # below-threshold samples add nothing to the head composite
+        w_kp = np.where(w_kp > out.raymarch_weight_thres, w_kp, 0.0)
+        tail_mass = np.cumsum(w_kp[:, ::-1], axis=1)[:, ::-1]
+        best_h = None
+        for kA in (4, 6, 8, 12, 16):
+            if kA >= k:
+                continue
+            over = tail_mass[:, kA] > head_tail_eps
+            frac = min(1.0, float(over.mean()) * 1.5 + 1 / 64)
+            cost = kA + frac * (k - kA)
+            if best_h is None or cost < best_h[0]:
+                best_h = (cost, kA, frac)
+        # a marginal split still pays for a second pass: require 15%
+        if best_h is not None and best_h[0] < 0.85 * k:
+            out = replace(out, head_term_first=best_h[1],
+                          head_term_fraction=best_h[2])
+    return out
 
 
 def _branch_feats(fused: FusedGrids, name: str, flat):
@@ -207,6 +526,23 @@ def _semantic_map_postprocess(rcfg, semantic_map):
     return semantic_map
 
 
+def _tail_ratio(m_full, m_kept):
+    """Per-ray completion ratio full/kept, 1.0 on empty rays ([R] -> [R]):
+    above 1 only by the above-threshold mass the head compaction dropped."""
+    return torch.where(m_kept > 1e-12,
+                       m_full / torch.clamp(m_kept, min=1e-12), 1.0)
+
+
+def _head_select(weight: torch.Tensor, k: int):
+    """The k heaviest samples per ray, sorted: (w_k [R,k], idx [R,k],
+    head_tail = max k-th kept weight). The "sort" mode of ``_head_select``:
+    a stable descending sort keeps ties lowest index first, as
+    ``lax.top_k`` does (many rays tie at zero weight)."""
+    w_sorted, idx = torch.sort(weight, dim=1, descending=True, stable=True)
+    w_k = w_sorted[:, :k]
+    return w_k, idx[:, :k], torch.amax(w_k[:, -1])
+
+
 def _head_weights(rcfg, weight):
     """The per-sample compositing weights used for semantic/instance heads."""
     if rcfg.semantic_weight_mode == "argmax":
@@ -216,55 +552,185 @@ def _head_weights(rcfg, weight):
     return weight[..., None]
 
 
+def _app_block(params, mcfg, fused, xyz_s, view_r, mask_s, compute_dtype):
+    """rgb [Rn, Ks, 3] at samples xyz_s [Rn, Ks, 3] of rays with view
+    directions view_r [Rn, 3], zero where ``mask_s`` is False."""
+    Rn, Ks = xyz_s.shape[:2]
+    flat = xyz_s.reshape(-1, 3)
+    vd = view_r[:, None, :].expand(Rn, Ks, 3).reshape(-1, 3)
+    rgb = tf.render_appearance(params, mcfg, vd, flat, compute_dtype,
+                               feats=_branch_feats(fused, "appearance", flat))
+    return torch.where(mask_s.reshape(-1, 1), rgb, 0.0).reshape(Rn, Ks, 3)
+
+
+def _semins_block(params, mcfg, fused, xyz_s, mask_s, compute_dtype):
+    """(semantics, instances) [Rn, Ks, C] at samples xyz_s, zero where
+    ``mask_s`` is False."""
+    Rn, Ks = xyz_s.shape[:2]
+    flat = xyz_s.reshape(-1, 3)
+    mf = mask_s.reshape(-1, 1)
+    sem = tf.render_semantics(params, mcfg, flat, None, compute_dtype,
+                              feats=_branch_feats(fused, "semantic", flat))
+    ins = tf.render_instances(params, mcfg, flat, None, compute_dtype,
+                              feats=_branch_feats(fused, "instance", flat))
+    return (torch.where(mf, sem, 0.0).reshape(Rn, Ks, -1),
+            torch.where(mf, ins, 0.0).reshape(Rn, Ks, -1))
+
+
+def _heads_one_pass(params, mcfg, rcfg, fused, rays, xyz_h, head_weight,
+                    app_mask, k2, compute_dtype, m_full):
+    """Heads on every column of xyz_h [R, Sh, 3] (the sem/ins heads on the
+    first k2), composited with ``head_weight``; with ``m_full`` the rgb and
+    instance maps are completed by the dropped above-threshold mass."""
+    rgb = _app_block(params, mcfg, fused, xyz_h, rays[:, 3:6], app_mask,
+                     compute_dtype)
+    semantics, instances = _semins_block(params, mcfg, fused, xyz_h[:, :k2],
+                                         app_mask[:, :k2], compute_dtype)
+    rgb_map = composite(head_weight, rgb)
+    w = _head_weights(rcfg, head_weight)
+    semantic_map = torch.sum(w[:, :k2] * semantics, dim=-2)
+    instance_map = torch.sum(w[:, :k2] * instances, dim=-2)
+    if m_full is not None:
+        mask_f = app_mask.to(head_weight.dtype)
+        rgb_map = rgb_map * _tail_ratio(
+            m_full, torch.sum(head_weight * mask_f, -1))[:, None]
+        if rcfg.semantic_weight_mode != "argmax":
+            instance_map = instance_map * _tail_ratio(
+                m_full, torch.sum(head_weight[:, :k2] * mask_f[:, :k2], -1)
+            )[:, None]
+    return rgb_map, semantic_map, instance_map
+
+
+def _heads_two_phase(params, mcfg, rcfg: RenderConfig, fused, rays, xyz_k,
+                     w_k, app_mask, k2: int, compute_dtype, head_tail,
+                     m_full=None):
+    """Two-phase heads (``head_term_first``): pass A on every ray's kA
+    heaviest samples; pass B on the remaining samples of the
+    ``head_term_fraction`` rays with the most above-threshold mass left,
+    added back per ray (the maps are weighted sums). ``head_tail`` grows to
+    the largest mass a non-survivor drops. Port of ``_heads_two_phase``."""
+    R, k = w_k.shape
+    kA = rcfg.head_term_first
+    k2A = min(kA, k2)
+    n_s = max(1, min(R, int(round(R * rcfg.head_term_fraction))))
+    # only above-threshold mass counts: the heads zero the rest
+    drop_key = torch.sum(w_k[:, kA:] * app_mask[:, kA:].to(w_k.dtype), dim=1)
+    order = torch.argsort(drop_key, stable=True)
+    surv = order[R - n_s:]
+    if n_s < R:
+        head_tail = torch.maximum(head_tail,
+                                  torch.amax(drop_key[order[:R - n_s]]))
+    w_h = _head_weights(rcfg, w_k)                      # [R, k, 1]
+    viewdirs = rays[:, 3:6]
+
+    rgbA = _app_block(params, mcfg, fused, xyz_k[:, :kA], viewdirs,
+                      app_mask[:, :kA], compute_dtype)
+    semA, insA = _semins_block(params, mcfg, fused, xyz_k[:, :k2A],
+                               app_mask[:, :k2A], compute_dtype)
+    rgb_map = torch.sum(w_k[:, :kA, None] * rgbA, dim=-2)
+    semantic_map = torch.sum(w_h[:, :k2A] * semA, dim=-2)
+    instance_map = torch.sum(w_h[:, :k2A] * insA, dim=-2)
+
+    xyzB = xyz_k[surv, kA:]
+    maskB = app_mask[surv, kA:]
+    rgbB = _app_block(params, mcfg, fused, xyzB, viewdirs[surv], maskB,
+                      compute_dtype)
+    w_kB = w_k[surv, kA:]
+    w_hB = w_h[surv, kA:]
+    rgb_map = rgb_map.index_add(0, surv, torch.sum(w_kB[..., None] * rgbB,
+                                                   dim=-2))
+    nB2 = k2 - k2A
+    if nB2 > 0:
+        semB, insB = _semins_block(params, mcfg, fused, xyzB[:, :nB2],
+                                   maskB[:, :nB2], compute_dtype)
+        semantic_map = semantic_map.index_add(
+            0, surv, torch.sum(w_hB[:, :nB2] * semB, dim=-2))
+        instance_map = instance_map.index_add(
+            0, surv, torch.sum(w_hB[:, :nB2] * insB, dim=-2))
+    if m_full is not None:
+        # kept masses accumulate in the same pass-A + splice pattern
+        mask_f = app_mask.to(w_k.dtype)
+        maskB_f = maskB.to(w_k.dtype)
+        m_rgb = torch.sum(w_k[:, :kA] * mask_f[:, :kA], -1).index_add(
+            0, surv, torch.sum(w_kB * maskB_f, -1))
+        rgb_map = rgb_map * _tail_ratio(m_full, m_rgb)[:, None]
+        if rcfg.semantic_weight_mode != "argmax":
+            m_ins = torch.sum(w_k[:, :k2A] * mask_f[:, :k2A], -1)
+            if nB2 > 0:
+                m_ins = m_ins.index_add(
+                    0, surv, torch.sum(w_kB[:, :nB2] * maskB_f[:, :nB2], -1))
+            instance_map = instance_map * _tail_ratio(m_full, m_ins)[:, None]
+    return rgb_map, semantic_map, instance_map, head_tail
+
+
 def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
                 state: RenderState, rays: torch.Tensor,
                 rng=None, is_train: bool = False,
                 fused: Optional[FusedGrids] = None):
-    """Dense render pass: rgb / semantics / instances / depth / dist-reg.
+    """Render pass: rgb / semantics / instances / depth / dist-reg, and the
+    guardrails ``budget_tail`` and ``head_tail`` (``dedup_tail`` is 0: head
+    dedup is not ported).
 
     Inference only (``is_train`` and ``rng`` belong to training, not ported).
     ``fused`` are the grids of ``ops/fused_grid.py::build_render_grids``; the
-    density of every sample goes through the brick-atlas kernel."""
+    density of every evaluated sample goes through the brick-atlas kernel.
+    With occupancy tables and ``coarse_stride`` the samples are selected by
+    empty-space skipping; with ``head_topk`` the heads run on the k
+    heaviest samples per ray."""
     if is_train or rng is not None:
         raise NotImplementedError("render_rays: is_train / rng (training "
                                   "render) is not ported")
     if fused is None:
         raise NotImplementedError("render_rays: fused=None (direct VM "
                                   "sampling) is not ported; pass "
-                                  "build_render_grids(params)")
+                                  "build_render_grids(...)")
     if mcfg.use_distilled:
         raise NotImplementedError("render_rays: distilled-feature heads "
                                   "(use_distilled_features_*) are not ported")
-    check_dense(rcfg)
-    xyz_n, z_vals, dists, mids, weight = _density_weights(mcfg, rcfg, state,
-                                                         rays, fused)
+    two_level = rcfg.coarse_stride is not None and fused.coarse_occ is not None
+    check_ported(rcfg, two_level)
+    if two_level:
+        (xyz_n, z_vals, _, dists, mids, _, weight, _,
+         budget_tail) = _two_level_density(mcfg, rcfg, state, rays, fused)
+    else:
+        xyz_n, z_vals, dists, mids, weight = _density_weights(
+            mcfg, rcfg, state, rays, fused)
+        budget_tail = torch.zeros((), device=weight.device)
     R, S = weight.shape
     dist_reg = distortion_loss(weight, mids, dists)
     compute_dtype = (torch.bfloat16 if rcfg.head_dtype == "bfloat16"
                      else torch.float32)
 
-    flat = xyz_n.reshape(-1, 3)
-    mask_flat = (weight > rcfg.raymarch_weight_thres).reshape(-1, 1)
-    viewdirs = rays[:, None, 3:6].expand(R, S, 3).reshape(-1, 3)
-    rgb = tf.render_appearance(params, mcfg, viewdirs, flat, compute_dtype,
-                               feats=_branch_feats(fused, "appearance", flat))
-    rgb = torch.where(mask_flat, rgb, 0.0).reshape(R, S, 3)
-    semantics = tf.render_semantics(
-        params, mcfg, flat, None, compute_dtype,
-        feats=_branch_feats(fused, "semantic", flat))
-    instances = tf.render_instances(
-        params, mcfg, flat, None, compute_dtype,
-        feats=_branch_feats(fused, "instance", flat))
-    semantics = torch.where(mask_flat, semantics, 0.0).reshape(R, S, -1)
-    instances = torch.where(mask_flat, instances, 0.0).reshape(R, S, -1)
-
-    opacity = torch.sum(weight, -1)
-    rgb_map = composite(weight, rgb)
-    w = _head_weights(rcfg, weight)
-    semantic_map = _semantic_map_postprocess(rcfg, torch.sum(w * semantics, dim=-2))
-    instance_map = torch.sum(w * instances, dim=-2)
-    return _finish_maps(rcfg, weight, z_vals, opacity, rgb_map, semantic_map,
-                        instance_map, dist_reg)
+    head_tail = torch.zeros((), device=weight.device)
+    topk = rcfg.head_topk is not None and rcfg.head_topk < S
+    if topk:
+        w_k, idx, head_tail = _head_select(weight, rcfg.head_topk)
+        xyz_h = torch.gather(xyz_n, 1, idx[..., None].expand(*idx.shape, 3))
+        head_weight = w_k
+        Sh = rcfg.head_topk
+        # the sem/ins heads take a prefix of the sorted k: the top k2
+        k2 = (Sh if rcfg.head_topk_semins is None
+              else min(rcfg.head_topk_semins, Sh))
+    else:
+        xyz_h, head_weight, Sh, k2 = xyz_n, weight, S, S
+    app_mask = head_weight > rcfg.raymarch_weight_thres         # [R, Sh]
+    m_full = None
+    if rcfg.head_tail_complete and topk:
+        m_full = torch.sum(weight * (weight > rcfg.raymarch_weight_thres), -1)
+    if topk and 0 < rcfg.head_term_first < Sh:
+        rgb_map, semantic_map, instance_map, head_tail = _heads_two_phase(
+            params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
+            compute_dtype, head_tail, m_full)
+    else:
+        rgb_map, semantic_map, instance_map = _heads_one_pass(
+            params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
+            compute_dtype, m_full)
+    out = _finish_maps(rcfg, weight, z_vals, torch.sum(weight, -1), rgb_map,
+                       _semantic_map_postprocess(rcfg, semantic_map),
+                       instance_map, dist_reg)
+    out.update(budget_tail=budget_tail, head_tail=head_tail,
+               dedup_tail=torch.zeros((), device=weight.device))
+    return out
 
 
 def _finish_maps(rcfg, weight, z_vals, opacity, rgb_map, semantic_map,

@@ -242,3 +242,83 @@ def test_dense_render_on_card_matches_cpu(cuda_device):
         np.testing.assert_allclose(maps[str(cuda_device)][key], want,
                                    atol=1e-4, rtol=0, err_msg=key)
     assert np.mean(np.abs(maps["cpu"]["instances"]).sum(-1) > 0) > 0.2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_fused_kernel_on_production_chunk_on_card(cuda_device, dtype):
+    """Fused form, kernel against plain on the production render's own
+    samples (pass A of the first 4,096-ray chunk of r5b val frame 0, out-of-box
+    samples included): within 1e-5 times max(1, sum of |row x weight|), the
+    bar chip_smoke.py holds the render chunk to (r5b's densities reach ~100,
+    where one float32 step is 7.6e-6)."""
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        PRODUCTION_CHUNK, R5B_CKPT, R5B_SCENE, e2e_scene, production_chunk)
+
+    dense, shift, xyz = production_chunk(R5B_CKPT, e2e_scene(*R5B_SCENE),
+                                         device=cuda_device)
+    assert xyz.shape[0] % (PRODUCTION_CHUNK * 8) == 0
+    atlas = tfg.build_brick_atlas(dense, dtype)
+    grid_dim = tuple(dense.shape)
+    n0 = bi.sample_density_brick.dtype_launches.get(_name(dtype), 0)
+    got = bi.sample_density_brick(atlas, xyz, grid_dim, shift)
+    torch.cuda.synchronize()
+    assert bi.sample_density_brick.dtype_launches[_name(dtype)] == n0 + 1
+    want = bi.sample_density_brick_reference(atlas, xyz, grid_dim, shift)
+    magnitude = bi.sample_density_brick_reference(atlas.abs(), xyz, grid_dim,
+                                                  0.0)
+    err = (got - want).abs() / torch.clamp(magnitude, min=1.0)
+    assert float(err.max()) <= 1e-5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("term_first", [0, 4])
+def test_production_render_on_card_matches_cpu(cuda_device, term_first):
+    """render_frames on the production path (empty-space skipping, L2-only
+    selection, top-8 heads with tail completion; fp32 heads, TF32 off) on the
+    card == on the CPU, at fixed budgets: in one pass, or in two with every
+    ray surviving pass A (the survivors of a smaller fraction are the rays of
+    largest residual, whose order the last bit of a float can change between
+    devices). Every pass launches the kernel on the card; maps within 1e-4."""
+    import dataclasses
+
+    from contrastive_lift_tpu_torch.data.base import FrameData
+    from contrastive_lift_tpu_torch.factory import make_model_config, make_render_config
+    from contrastive_lift_tpu_torch.inference.fidelity import e2e_config
+    from contrastive_lift_tpu_torch.inference.render import render_frames_report
+    from contrastive_lift_tpu_torch.io.convert import params_from_numpy
+    from contrastive_lift_tpu_torch.renderer.render import make_render_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(1)
+    tree = _field(rng)
+    bbox = np.array([[-1.0] * 3, [1.0] * 3], np.float32)
+    cfg = e2e_config((16, 24))
+    mcfg = make_model_config(cfg, 2)
+    rcfg = dataclasses.replace(
+        make_render_config(cfg, bbox, (14,) * 3, mcfg, 0.25), head_topk=8,
+        max_subsegments=8, term_first=term_first, term_fraction=1.0)
+    o = rng.uniform(-0.3, 0.3, (500, 3)) + [0.0, 0.0, -2.0]
+    d = rng.normal(size=(500, 3))
+    d[:, 2] = np.abs(d[:, 2]) + 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([o, d, np.full((500, 1), 0.05),
+                           np.full((500, 1), 5.0)], -1).astype(np.float32)
+    frames = [FrameData("0", rays, *([None] * 6))]
+    reports = {}
+    for dev in ("cpu", cuda_device):
+        n0 = bi.launch_total(bi.sample_density_brick)
+        reports[str(dev)] = render_frames_report(
+            params_from_numpy(tree, dev), mcfg, rcfg,
+            make_render_state(bbox, (14,) * 3, 0.25, device=dev), frames,
+            chunk=128, auto_budget=False, device=dev)
+        launched = bi.launch_total(bi.sample_density_brick) - n0
+        passes = 2 if term_first else 1
+        assert launched == (passes * 4 if dev == cuda_device else 0)
+    cpu, card = reports["cpu"], reports[str(cuda_device)]
+    assert dataclasses.asdict(card.rcfg) == dataclasses.asdict(cpu.rcfg)
+    assert not card.rcfg.use_l1 and card.rcfg.head_tail_complete
+    for key, want in cpu.maps[0].items():
+        np.testing.assert_allclose(card.maps[0][key], want, atol=1e-4, rtol=0,
+                                   err_msg=key)
+    assert np.mean(np.abs(cpu.maps[0]["instances"]).sum(-1) > 0) > 0.2
