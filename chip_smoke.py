@@ -66,11 +66,28 @@ Phases, each printing JSON lines with their seconds:
              unless the golden raised one; compared by guardrail, the values
              they quote are printed), and the float32 density kernel
              launched; the warm rays/s is printed beside the dense path's;
-7. profile - only with ``--profile``: one more warm render of the 4 val
+7. train_r5b - one training step of r5b (``train/resume.py``): resumed
+             from ``final.npz`` and its optimizer state on ``cuda`` with r5b's
+             own configuration, the head budget calibrated, step 1 on the
+             batches of the golden's sampler seed and the golden's random
+             draws with TF32 off, held against the eager JAX golden
+             ``contrastive_lift_tpu_torch/testdata/r5b_train_step_golden.npz``:
+             the budget equal, every loss and guardrail within rtol 2e-3,
+             every parameter leaf's sketches (its main-phase and
+             instance-phase gradients, its value after the step and its
+             change) within 4.5e-2; then 10 more steps on the port's own
+             samplers and generator, every metric finite, with the warm
+             steps/s, rays/s and peak device memory beside the card's name
+             and power limit;
+8. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
-             sort/top-k, other elementwise) and the top kernels.
+             sort/top-k, other elementwise) and the top kernels; and one warm
+             training step the same way, by training kind (K8 grid sampling,
+             K9 and other gathers and scatters, K10 and compositing scans,
+             head matmuls, the Adam updates), with K8-K10 also timed alone
+             at the step's shapes against their bounds.
 
 Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
 on the render-chunk inputs, the fused form also on the production chunk) and,
@@ -89,6 +106,10 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "contrastive_lift_tpu_torch" / "testdata" / "r5b_dense_golden.npz"
 PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
+TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
+# warm steps of train_r5b after step 1, and the sampler seed of those
+TRAIN_STEPS = 10
+TRAIN_STEP_SEED = 1
 TPU_KERNEL = "contrastive_lift_tpu/ops/pallas_interp.py:64"
 KERNEL_SOURCE = "contrastive_lift_tpu_torch/csrc/brick_interp.cu"
 
@@ -237,13 +258,18 @@ def lattice_yardstick(rows, frac):
                                  align_corners=True).view(n)
 
 
-def phase_device():
-    import torch
-    t0 = time.perf_counter()
+def card_line() -> str:
+    """The card's name and power limit, as nvidia-smi gives them."""
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True, check=True)
-    print(smi.stdout.strip().splitlines()[0], flush=True)
+    return smi.stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    import torch
+    t0 = time.perf_counter()
+    print(card_line(), flush=True)
     name = torch.cuda.get_device_name(0)
     emit({"phase": "device", "kind": name,
           "count": torch.cuda.device_count(),
@@ -743,6 +769,250 @@ def phase_profile():
             params, mcfg, rcfg, state_r, scene.val_frames, chunk=chunk), rays)
 
 
+# profiler ranges of the training step (not kernels; their device time
+# overlaps the kernels they enclose)
+TRAIN_RANGES = ("adam_update",)
+
+
+def _train_kind(name: str) -> str:
+    low = name.lower()
+    if "grid_sampler" in low or "bilinear_sampler" in low:
+        return "K8_grid_sample"
+    if "gemm" in low or "cutlass" in low or "xmma" in low:
+        return "head_matmul"
+    if "index" in low or "gather" in low or "scatter" in low:
+        return "K9_and_other_gather_scatter"
+    if "scan" in low or "cumsum" in low or "cumprod" in low:
+        return "K10_and_compositing_scans"
+    if "sort" in low or "topk" in low or "radix" in low:
+        return "sort_topk"
+    return "other_elementwise"
+
+
+def phase_train_r5b(profile: bool):
+    """One r5b training step held to the JAX golden, then warm steps."""
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.config import load_config
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        R5B_CKPT, R5B_CONFIG, R5B_SCENE, e2e_scene)
+    from contrastive_lift_tpu_torch.train import resume
+    from contrastive_lift_tpu_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    scene = e2e_scene(*R5B_SCENE)
+    cfg = load_config(R5B_CONFIG)
+    with np.load(TRAIN_GOLDEN) as g:
+        gold = {k: g[k] for k in g.files}
+    t0 = time.perf_counter()
+    res = resume.golden_step(R5B_CKPT, cfg, scene, gold, device="cuda")
+    bad = resume.check_train_step(res, gold)
+    sketch_err = {
+        name: max(resume.sketch_error(a, b) for a, b in
+                  zip(res[f"sketch_{name}"], gold[f"sketch_{name}"]))
+        for name in resume.SKETCHES}
+    setup = res["setup"]
+    emit({"phase": "train_r5b", "step": 1, "card": card,
+          "aux_head_topk": res["aux_head_topk"],
+          "golden_aux_head_topk": gold["aux_head_topk"].item(),
+          "metrics": {m: res["metrics"][m] for m in resume.TRAIN_METRICS},
+          "golden": {m: float(gold[f"metric_{m}"])
+                     for m in resume.TRAIN_METRICS},
+          "max_sketch_err": sketch_err, "failures": bad,
+          "epoch": setup.epoch, "lr_scale": setup.lr_scale,
+          "n_samples": setup.rcfg.n_samples,
+          "part_seconds": res["seconds"],
+          "seconds": time.perf_counter() - t0})
+    if bad:
+        raise AssertionError(f"train_r5b step 1 differs from the JAX golden: "
+                             f"{bad[:10]}")
+    cfg = setup.cfg
+    step = make_train_step(cfg, setup.mcfg, setup.rcfg, setup.gates,
+                           setup.class_weights, setup.state.params,
+                           aux_head_topk=res["aux_head_topk"])
+    state = res["state"]
+    gen = torch.Generator(device="cuda").manual_seed(int(cfg.seed or 0))
+    rng = np.random.default_rng(TRAIN_STEP_SEED)
+    rays_per_step = (cfg.batch_size
+                     + cfg.batch_size_contrastive * cfg.max_rays_instances
+                     + cfg.batch_size_segments * cfg.max_rays_segments)
+
+    def one_step(state):
+        bm, bi, bs = resume.step_batches(setup, rng)
+        state, m = step(state, setup.state_r, bm, bi, bs, gen,
+                        setup.lr_scale, setup.lambda_dist_reg)
+        return state, {k: float(v) for k, v in m.items()}
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, losses = [], []
+    t0 = time.perf_counter()
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        state, m = one_step(state)
+        times.append(time.perf_counter() - t)
+        losses.append(m)
+        if not all(np.isfinite(v) for v in m.values()):
+            raise AssertionError(f"train_r5b: a metric is not finite: {m}")
+    peak = torch.cuda.max_memory_allocated()
+    warm = times[2:]
+    steps_per_s = len(warm) / sum(warm)
+    emit({"phase": "train_r5b", "steps": TRAIN_STEPS, "card": card,
+          "step_seconds": times, "warm_steps_per_second": steps_per_s,
+          "rays_per_step": rays_per_step,
+          "warm_rays_per_second": steps_per_s * rays_per_step,
+          "max_memory_allocated_bytes": peak,
+          "loss_main": [m["loss_main"] for m in losses],
+          "loss_clustering": [m["loss_clustering"] for m in losses],
+          "seconds": time.perf_counter() - t0})
+    print(f"train_r5b: {steps_per_s:.3f} warm steps/s, "
+          f"{steps_per_s * rays_per_step:.0f} rays/s, peak "
+          f"{peak / 2**30:.2f} GiB on {card}", flush=True)
+    if profile:
+        profile_train(one_step, state, setup, res["aux_head_topk"], card)
+
+
+def profile_train(one_step, state, setup, k: int, card: str, top: int = 15):
+    """One warm step under torch.profiler by training kind, and K8-K10
+    alone at the step's shapes (forward and backward) against their
+    bounds."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from contrastive_lift_tpu_torch.models import tensorf as tf
+    from contrastive_lift_tpu_torch.ops import fused_grid as fg
+    from contrastive_lift_tpu_torch.ops.compositing import distortion_loss
+
+    t0 = time.perf_counter()
+    state, _ = one_step(state)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t_wall = time.perf_counter()
+        state, _ = one_step(state)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t_wall
+    events = prof.key_averages()
+    kernels = [(e.key, _device_us(e), e.count) for e in events
+               if e.device_type == DeviceType.CUDA and _device_us(e) > 0
+               and e.key not in TRAIN_RANGES]
+    busy_s = sum(us for _, us, _ in kernels) / 1e6
+    by_kind = {}
+    for kname, us, _ in kernels:
+        kind = _train_kind(kname)
+        by_kind[kind] = by_kind.get(kind, 0.0) + us / 1e3
+    # the range's own device entry spans its kernels
+    adam_ms = sum(_device_us(e) for e in events if e.key == "adam_update"
+                  and e.device_type == DeviceType.CUDA) / 1e3
+    kernels.sort(key=lambda x: -x[1])
+
+    # K8-K10 alone, forward + backward, at the main phase's shapes
+    cfg, rcfg = setup.cfg, setup.rcfg
+    params = state.params
+    R_main, S = cfg.batch_size, rcfg.n_samples
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    xyz_h = torch.rand((R_main * k, 3), generator=gen, device="cuda") * 2 - 1
+    xyz_d = torch.rand((R_main * S, 3), generator=gen, device="cuda") * 2 - 1
+    app = {n: params[n] for n in ("appearance", "appearance_basis")}
+    dens = {"density": params["density"]}
+
+    def with_grad(tree):
+        return {n: ({kk: tuple(t.detach().requires_grad_() for t in v)
+                     for kk, v in b.items()} if "planes" in b
+                    else {kk: v.detach().requires_grad_()
+                          for kk, v in b.items()})
+                for n, b in tree.items()}
+
+    def k8():
+        p = with_grad(app)
+        tf._branch_feature(p, "appearance", xyz_h).sum().backward()
+
+    def k9():
+        p = with_grad(dens)
+        fg.sample_density_fused(fg.build_density_only(p), xyz_d,
+                                -10.0).sum().backward()
+
+    w = torch.rand((R_main, S), generator=gen, device="cuda") / S
+    mids = torch.cumsum(torch.rand((R_main, S), generator=gen,
+                                   device="cuda"), 1)
+    dists = torch.rand((R_main, S), generator=gen, device="cuda")
+
+    def k10():
+        ww = w.detach().requires_grad_()
+        distortion_loss(ww, mids, dists).backward()
+
+    planes = params["appearance"]["planes"]
+    lines = params["appearance"]["lines"]
+    f_bytes = 4 * sum(t.numel() for t in planes + lines)
+    comps = sum(t.shape[0] for t in planes)
+    P = R_main * k
+    # plane 0 is [C, gy, gx], line 0 is [C, gz]
+    _, gy, gx = params["density"]["planes"][0].shape
+    gz = params["density"]["lines"][0].shape[1]
+    cells = (gx - 1) * (gy - 1) * (gz - 1)
+    dcomp = sum(t.shape[0] for t in params["density"]["planes"])
+    d_bytes = 4 * sum(t.numel() for t in params["density"]["planes"]
+                      + params["density"]["lines"])
+    PD = R_main * S
+    alone = {
+        # positions in, features out; backward: feature grads in, factor
+        # grads out. 4 plane + 2 line taps, a product and the basis matmul
+        "K8_vm_feature_appearance": (
+            k8, f"{P} samples x {comps} components",
+            2 * (P * 12 + P * comps * 4) + 2 * f_bytes + P * 27 * 4 * 2,
+            P * comps * (2 * 14 + 2 * 27)),
+        # the densify einsums (g^3 x 3 x C multiply-adds, forward and
+        # backward), the cell rows written and read back, one row and the
+        # position per sample, the value out; backward the same in reverse
+        "K9_density_cells": (
+            k9, f"{PD} samples, grid {gx}x{gy}x{gz}",
+            2 * (d_bytes + gx * gy * gz * 4 + cells * 32 + PD * (12 + 32 + 4)),
+            2 * (2 * 3 * dcomp * gx * gy * gz) + PD * 2 * 40),
+        # weights, midpoints and intervals in, the weights' gradient out
+        "K10_distortion": (
+            k10, f"{R_main} rays x {S} samples",
+            R_main * S * 4 * 4, R_main * S * 20),
+    }
+    # the whole step's share of each: K8 and K10 run only in the main phase;
+    # K9 adds two stop-gradient builds (the segment and instance passes,
+    # each with its coarse occupancy) and their forward samples, the
+    # segment chunks' twice (the checkpointed backward recomputes them)
+    aux_samples = (2 * cfg.batch_size_segments * cfg.max_rays_segments
+                   + cfg.batch_size_contrastive * cfg.max_rays_instances) * (
+        cfg.ess_train_segments * cfg.ess_train_stride)
+    k9_build_bytes = d_bytes + gx * gy * gz * 4 + cells * 32
+    step_extra = {
+        "K8_vm_feature_appearance": (0, 0),
+        "K9_density_cells": (
+            2 * (k9_build_bytes + gx * gy * gz * 4) + aux_samples * 48,
+            2 * (2 * 3 * dcomp * gx * gy * gz) + aux_samples * 40),
+        "K10_distortion": (0, 0)}
+    isolated = {}
+    for name, (fn, shape, n_bytes, n_flops) in alone.items():
+        ms, spread = timed(fn, flush=True)
+        b_ms, b_by = bound(n_bytes, n_flops)
+        extra_bytes, extra_flops = step_extra[name]
+        s_ms, s_by = bound(n_bytes + extra_bytes, n_flops + extra_flops)
+        isolated[name] = {"shape": shape, "ms": ms, "spread_ms": spread,
+                          "bound_ms": b_ms, "bound_by": b_by,
+                          "bytes": n_bytes, "flops": n_flops,
+                          "step_bound_ms": s_ms, "step_bound_by": s_by,
+                          "step_bytes": n_bytes + extra_bytes,
+                          "step_flops": n_flops + extra_flops}
+    emit({"phase": "profile", "path": "train_step", "card": card,
+          "wall_s": wall, "device_busy_s": busy_s,
+          "idle_share": 1.0 - busy_s / wall, "device_ms_by_kind": by_kind,
+          "adam_update_device_ms": adam_ms,
+          "kernel_launches": sum(count for _, _, count in kernels),
+          "top": [{"name": kname[:100], "device_ms": us / 1e3, "calls": count}
+                  for kname, us, count in kernels[:top]],
+          "alone": isolated, "seconds": time.perf_counter() - t0})
+    if busy_s <= 0.0:
+        raise AssertionError("the profiler recorded no device time")
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
     on the render-chunk inputs (the dense main path's own) and its launches
@@ -779,7 +1049,7 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--profile", action="store_true",
                     help="also profile one warm render of the dense and of "
-                         "the production path")
+                         "the production path, and one warm training step")
     ap.add_argument("--against", type=Path, nargs="*", default=[],
                     metavar="SOURCE",
                     help="other sources of csrc/brick_interp.cu (an earlier "
@@ -792,7 +1062,8 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    for needed in (GOLDEN, PRODUCTION_GOLDEN, ROOT / KERNEL_SOURCE):
+    for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN,
+                   ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
                   "the repository", file=sys.stderr)
@@ -806,6 +1077,7 @@ def main() -> int:
                 "bfloat16": phase_main_bf16_atlas(),
                 "production": phase_main_production(
                     dense_warm_rays_per_second)}
+    phase_train_r5b(args.profile)
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

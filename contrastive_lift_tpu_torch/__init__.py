@@ -6,9 +6,11 @@ weights and rays (``tests/test_torch_port_*.py``). The port imports ``torch``
 and ``numpy`` only, never JAX or the JAX package, so it runs on a GPU host
 without JAX.
 
-Ported so far (the dense render path): checkpoint loading, the TensoRF heads,
-the brick-atlas density kernel (``csrc/brick_interp.cu``, hand-written for
-``sm_90a``), dense volume rendering, mean-shift clustering and PQ^scene.
+Ported so far: checkpoints (with optimizer state), the TensoRF field and
+heads, the brick-atlas density kernel (``csrc/brick_interp.cu``, hand-written
+for ``sm_90a``), the dense and production renders, mean-shift clustering and
+PQ^scene, and one training step (``train/step.py::make_train_step``: losses,
+both Adam chains, the slow-fast EMA, the samplers).
 Entry points take ``device=`` (default ``"cuda"``) and never fall back to the
 CPU on their own; options of the JAX functions that are not ported yet raise
 ``NotImplementedError``.

@@ -1,14 +1,18 @@
-"""Wiring helpers: Config -> model and renderer configs.
+"""Wiring helpers: Config -> model, renderer configs and class weights.
 
-Port of ``make_model_config`` / ``make_render_config`` from
-``contrastive_lift_tpu/factory.py``; the two packages build equal configs
-from the same ``Config``.
+Port of ``contrastive_lift_tpu/factory.py``; the two packages build equal
+configs from the same ``Config``.
 """
 from __future__ import annotations
 
+import numpy as np
+import torch
+
 from .config import Config
+from .losses.losses import get_semantic_weights
 from .models import tensorf as tf
 from .renderer import render as R
+from .utils.device import resolve_device
 
 
 def make_model_config(cfg: Config, num_semantic_classes: int) -> tf.TensoRFConfig:
@@ -53,3 +57,33 @@ def make_render_config(cfg: Config, scene_bounds, grid_dim, mcfg: tf.TensoRFConf
         sub_stride=getattr(cfg, "sub_stride", 0) or None,
         max_subsegments=getattr(cfg, "max_subsegments", 24),
     )
+
+
+def build_model(cfg: Config, num_semantic_classes: int, scene_bounds=None,
+                grid_dim=None, seed=None, step_ratio: float = 0.5,
+                white_bg: bool = False, device="cuda"):
+    """(mcfg, params, rcfg, render_state) at the initial grid resolution,
+    on ``device``. The parameters are drawn from a ``torch.Generator``
+    seeded with ``seed`` (default ``cfg.seed``), with the JAX package's
+    distributions, not its draws."""
+    dev = resolve_device(device)
+    if scene_bounds is None:
+        scene_bounds = np.array([[-1., -1., -1.], [1., 1., 1.]], np.float32)
+    if grid_dim is None:
+        grid_dim = (cfg.min_grid_dim,) * 3
+    seed = cfg.seed if seed is None else seed
+    mcfg = make_model_config(cfg, num_semantic_classes)
+    gen = torch.Generator().manual_seed(int(seed or 0))
+    params = tf.init_tensorf(gen, mcfg, grid_dim, device=dev)
+    rcfg = make_render_config(cfg, scene_bounds, grid_dim, mcfg, step_ratio,
+                              white_bg)
+    state_r = R.make_render_state(scene_bounds, grid_dim, step_ratio,
+                                  device=dev)
+    return mcfg, params, rcfg, state_r
+
+
+def class_weights_for(cfg: Config, segmentation, device="cuda") -> torch.Tensor:
+    return get_semantic_weights(cfg.reweight_fg, segmentation.fg_classes,
+                                segmentation.num_semantic_classes,
+                                cfg.weight_class_0,
+                                device=resolve_device(device))

@@ -40,6 +40,8 @@ from .render import (load_model_for_inference, prepare_render, render_frames,
 R5B_CKPT = (Path(__file__).resolve().parents[2] / "artifacts" / "e2e_r5b_tpu"
             / "checkpoints" / "final.npz")
 R5B_SCENE = ((64, 96), 64, 18.0)
+# the configuration r5b was trained with
+R5B_CONFIG = R5B_CKPT.parents[1] / "config.json"
 BANDWIDTH = 0.15
 CHUNK = 1024
 # the gate renders the production path in chunks of cfg.chunk; the number of

@@ -64,12 +64,21 @@ def _build_render_grids(params, mcfg, rcfg, state_r) -> FusedGrids:
 def prepare_render(params, mcfg, rcfg, state_r, frames: List[FrameData],
                    auto_budget: bool = True, termination: bool = True,
                    head_term: bool = True, l2_only: bool = True,
-                   head_tail_eps: float = 2e-3, tail_complete: bool | None = None):
+                   head_tail_eps: float = 2e-3, tail_complete: bool | None = None,
+                   use_fused: bool = True):
     """(render config, grids) that ``render_frames`` renders with, in the
-    JAX package's order: the grids; the tail-completion default (on wherever
-    ``head_topk`` is); L2-only selection; the occupancy group sizes; and,
-    with ``auto_budget``, budgets calibrated on a probe of up to 8 frames
-    (4,096 rays)."""
+    JAX package's order: the grids (None without ``use_fused``: the render
+    samples the VM factors directly, without skipping); the tail-completion
+    default (on wherever ``head_topk`` is); L2-only selection; the occupancy
+    group sizes; and, with ``auto_budget``, budgets calibrated on a probe of
+    up to 8 frames (4,096 rays)."""
+    R.check_ported(rcfg)
+    if not use_fused:
+        if tail_complete is None:
+            tail_complete = rcfg.head_topk is not None
+        if rcfg.head_topk is not None:
+            rcfg = dataclasses.replace(rcfg, head_tail_complete=tail_complete)
+        return rcfg, None
     fused = _build_render_grids(params, mcfg, rcfg, state_r)
     if tail_complete is None:
         tail_complete = rcfg.head_topk is not None
@@ -80,7 +89,6 @@ def prepare_render(params, mcfg, rcfg, state_r, frames: List[FrameData],
         rcfg = dataclasses.replace(rcfg, use_l1=False)
     if fused.occ_bits_group is not None:
         rcfg = R.occ_grouping_for(rcfg, state_r)
-    R.check_ported(rcfg, fused.coarse_occ is not None)
     if (auto_budget and frames and rcfg.coarse_stride is not None
             and fused.coarse_occ is not None):
         sel = frames[::max(1, len(frames) // 8)][:8]
@@ -152,9 +160,6 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
                          device="cuda") -> RenderReport:
     """``render_frames``, returning with the maps the render config the
     chunks used (calibrated budgets included) and the guardrail maxima."""
-    if not use_fused:
-        raise NotImplementedError("render_frames: use_fused=False (direct VM "
-                                  "sampling) is not ported")
     if mesh is not None:
         raise NotImplementedError("render_frames: mesh (multi-device "
                                   "render) is not ported")
@@ -170,7 +175,8 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
         rcfg, fused = prepare_render(
             params, mcfg, rcfg, state_r, frames, auto_budget=auto_budget,
             termination=termination, head_term=head_term, l2_only=l2_only,
-            head_tail_eps=head_tail_eps, tail_complete=tail_complete)
+            head_tail_eps=head_tail_eps, tail_complete=tail_complete,
+            use_fused=use_fused)
         for fi, frame in enumerate(frames):
             rays = frame.rays.astype(np.float32)
             n = rays.shape[0]
@@ -212,8 +218,8 @@ def render_frames(params, mcfg, rcfg, state_r, frames: List[FrameData],
     and the padding is cut off again. ``dispatch_group`` only batched device
     dispatches on the TPU, and ``data_axis`` names the axis of a ``mesh``;
     here the chunks run as a plain loop. Guardrail warnings are raised as in
-    the JAX package. The unported options (``use_fused=False``, ``mesh``,
-    ``bake_heads``, and those ``renderer.render.check_ported`` names)
+    the JAX package. ``use_fused=False`` samples the VM factors directly. The
+    unported options (``mesh``, ``bake_heads``, and those ``renderer.render.check_ported`` names)
     raise."""
     return render_frames_report(
         params, mcfg, rcfg, state_r, frames, chunk=chunk, progress=progress,

@@ -1,7 +1,7 @@
 """Dense grids built from the VM factors, occupancy tables, and their samplers.
 
 Port of the parts of ``contrastive_lift_tpu/ops/fused_grid.py`` that the
-render reads. Trilinear interpolation is multilinear, so each factorized
+render and the training step read. Trilinear interpolation is multilinear, so each factorized
 field plane(x,y) * line(z) equals the trilinear interpolation of one dense
 voxel grid built from the factors; the density becomes a brick atlas sampled
 by the ``brick_interp`` kernel, the projected appearance (and any other VM
@@ -12,6 +12,12 @@ supervoxel block: the raw density maxima (dilated by one block, and with the
 tight node margin), both thresholded and bit-packed into 5^3-neighborhood
 rows, and the slot map of the blocks whose features the heads may read. Every
 table that only moves or maxes data equals the JAX package's.
+
+Training (``build_density_only``) builds the density as one 8-corner row per
+cell (``_cell_corner_grid``) and samples it with one row gather
+(``sample_density_fused``); both are differentiable back to the VM factors
+through ``build_dense_density``, so the main phase's gradient reaches the
+planes and lines.
 
 Not ported on purpose: the corner-redundant feature tables
 (``_cell_corner_feature``, ``build_compact_tables``) are a TPU gather layout,
@@ -35,9 +41,10 @@ SUPERVOXEL = 4
 
 
 class FusedGrids(NamedTuple):
-    """Dense grids for one set of parameters (built once per render)."""
+    """Dense grids for one set of parameters (built once per render, or per
+    training step)."""
     grid_dim: Tuple[int, int, int]
-    brick_atlas: torch.Tensor           # [Bx*By*Bz, 128] f32 or bf16
+    brick_atlas: Optional[torch.Tensor]  # [Bx*By*Bz, 128] f32 or bf16
     features: Dict[str, torch.Tensor]   # branch -> [gx*gy*gz, out_dim]
     # empty-space skipping, per supervoxel block b (flat over coarse_dim):
     # raw density max dilated by one block, and with the tight node margin
@@ -51,6 +58,8 @@ class FusedGrids(NamedTuple):
     occ_bits_group_tight: Optional[torch.Tensor] = None  # [C, 4] int64
     # 1-based slot of each block whose features the heads read, 0 = none
     slot_map: Optional[torch.Tensor] = None              # [C] int64
+    # the 8 corners of each cell in one row (training's density)
+    density_cells: Optional[torch.Tensor] = None  # [(gx-1)(gy-1)(gz-1), 8]
 
 
 def build_dense_density(params: dict) -> torch.Tensor:
@@ -61,6 +70,33 @@ def build_dense_density(params: dict) -> torch.Tensor:
     d = d + torch.einsum("czx,cy->xyz", planes[1], lines[1])
     d = d + torch.einsum("czy,cx->xyz", planes[2], lines[2])
     return d
+
+
+def _cell_corner_grid(dense: torch.Tensor) -> torch.Tensor:
+    """[gx,gy,gz] -> [(gx-1)(gy-1)(gz-1), 8]: the 8 corners of each cell
+    (dx, dy, dz with dz fastest) in one row, so a trilinear sample is one
+    row read."""
+    gx, gy, gz = dense.shape
+    corners = [dense[dx:gx - 1 + dx, dy:gy - 1 + dy, dz:gz - 1 + dz]
+               for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)]
+    return torch.stack(corners, dim=-1).reshape(-1, 8)
+
+
+def build_density_only(params: dict, with_atlas: bool = False,
+                       with_occupancy: bool = False) -> FusedGrids:
+    """Density-only grids for the training passes: the cell-corner rows
+    (differentiable to the factors), with ``with_occupancy`` the
+    block-dilated coarse occupancy for train-time empty-space skipping, and
+    with ``with_atlas`` the brick atlas. Port of ``build_density_only``."""
+    dense = build_dense_density(params)
+    coarse_occ, coarse_dim = None, None
+    if with_occupancy:
+        dilated = _build_coarse_occ(dense, SUPERVOXEL)
+        coarse_occ, coarse_dim = dilated.reshape(-1), tuple(dilated.shape)
+    return FusedGrids(tuple(dense.shape),
+                      build_brick_atlas(dense) if with_atlas else None, {},
+                      coarse_occ=coarse_occ, coarse_dim=coarse_dim,
+                      density_cells=_cell_corner_grid(dense))
 
 
 def build_dense_feature(params: dict, name: str,
@@ -260,6 +296,18 @@ def _corner_weights(f: torch.Tensor) -> torch.Tensor:
         (1 - fx) * fy * (1 - fz), (1 - fx) * fy * fz,
         fx * (1 - fy) * (1 - fz), fx * (1 - fy) * fz,
         fx * fy * (1 - fz), fx * fy * fz], dim=-1)
+
+
+def sample_density_fused(fused: FusedGrids, xyz: torch.Tensor,
+                         splus_shift: float) -> torch.Tensor:
+    """Pre-activation density plus the shift at [P,3] coords in [-1,1]: one
+    cell-corner row per sample, weighted trilinearly. Port of
+    ``sample_density_fused``; its backward scatter-adds into the rows."""
+    _, gy, gz = fused.grid_dim
+    i, f = _cell_coords(fused.grid_dim, xyz)
+    flat = (i[:, 0] * (gy - 1) + i[:, 1]) * (gz - 1) + i[:, 2]
+    rows = fused.density_cells[flat]
+    return torch.sum(rows * _corner_weights(f), dim=-1) + splus_shift
 
 
 def _block_coords(fused: FusedGrids, xyz: torch.Tensor) -> torch.Tensor:

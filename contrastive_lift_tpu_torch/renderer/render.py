@@ -1,19 +1,27 @@
-"""Volume renderer for the TensoRF panoptic field: dense and production paths.
+"""Volume renderer for the TensoRF panoptic field: inference and training.
 
-Port of ``contrastive_lift_tpu/renderer/render.py`` at inference:
+Port of ``contrastive_lift_tpu/renderer/render.py``:
 
 * the dense path: every ray carries ``n_samples`` AABB-clipped uniform
   samples, the density of each goes through the brick-atlas kernel
-  (``ops/brick_interp.py``), and every head runs on every sample, with
+  (``ops/brick_interp.py``), through the cell-corner rows of
+  ``build_density_only`` (training), or is sampled from the VM factors
+  directly (``fused=None``), and every head runs on every sample, with
   samples below ``raymarch_weight_thres`` masked to zero (the fp32 reference
   of ``tools/pq_fidelity_gate.py``);
-* the production path (``coarse_stride`` / ``sub_stride``, L2-only
-  selection): the sub-segments of each ray are tested against the bit-packed
-  tight occupancy, the fine density runs only at the nearest occupied ones
-  (through the same kernel), optionally in two passes with early termination
-  (``term_first``), and with ``head_topk`` the heads run only on the k
-  heaviest samples per ray, optionally in two phases (``head_term_first``),
-  with tail completion (``head_tail_complete``).
+* the production path (``coarse_stride`` / ``sub_stride``): the segments or
+  sub-segments of each ray are tested against the occupancy tables, the
+  fine density runs only at the nearest occupied ones, optionally in two
+  passes with early termination (``term_first``), and with ``head_topk`` the
+  heads run only on the k heaviest samples per ray, optionally in two phases
+  (``head_term_first``), with tail completion (``head_tail_complete``);
+* training (``is_train`` with random draws): jittered samples and the
+  background coin in ``render_rays``, and the stop-gradient instance and
+  segment passes (``render_instance_features``, ``render_segment_features``)
+  with train-time empty-space skipping and top-k heads (``_aux_topk``).
+
+Randomness comes from a ``torch.Generator`` or, so that a run can take the
+JAX package's draws, from the draws themselves (``RayDraws``).
 
 ``RenderConfig`` keeps every field of the JAX config so the two compare field
 by field; ``check_ported`` names the options whose paths are not ported.
@@ -29,8 +37,8 @@ import torch
 from ..models import tensorf as tf
 from ..ops.compositing import composite, distortion_loss, raw_to_alpha
 from ..ops.fused_grid import (FusedGrids, sample_coarse_occ,
-                              sample_density_brick, sample_feature_fused,
-                              sample_occ_bits_grouped)
+                              sample_density_brick, sample_density_fused,
+                              sample_feature_fused, sample_occ_bits_grouped)
 
 
 @dataclass(frozen=True)
@@ -105,24 +113,40 @@ class RenderConfig:
                              f"got {self.atlas_dtype!r}")
 
 
-def check_ported(rcfg: RenderConfig, two_level: bool = True) -> None:
+def check_ported(rcfg: RenderConfig) -> None:
     """Raise ``NotImplementedError`` naming each set option whose path is not
-    ported. ``two_level``: whether the render selects samples with
-    empty-space skipping (``coarse_stride`` with occupancy tables)."""
+    ported."""
     unported = [name for name in ("head_dedup_cells", "fine_span_rows")
                 if getattr(rcfg, name) is not None]
     if rcfg.head_select != "sort":
         unported.append(f"head_select={rcfg.head_select!r}")
-    if two_level and rcfg.coarse_stride is not None:
-        if rcfg.sub_stride is None or rcfg.sub_stride >= rcfg.coarse_stride:
-            unported.append("coarse_stride without a finer sub_stride (the "
-                            "L1 segment selection)")
-        elif rcfg.use_l1:
-            unported.append("use_l1=True (the L1 segment cascade; "
-                            "render_frames(l2_only=True) selects L2-only)")
     if unported:
         raise NotImplementedError(
             f"RenderConfig options not ported yet: {', '.join(unported)}")
+
+
+class RayDraws(NamedTuple):
+    """The random draws of one training render: the per-ray jitter
+    (U[0,1), scaled by ``perturb`` steps) and the background coin (U[0,1),
+    white background below 0.5)."""
+    jitter: torch.Tensor                 # [R]
+    coin: Optional[torch.Tensor] = None  # []
+
+
+def ray_draws(rng, n_rays: int, device) -> Optional[RayDraws]:
+    """``rng`` as the draws of a render of ``n_rays`` rays on ``device``:
+    ``None`` stays ``None``, ``RayDraws`` are moved to the device, and a
+    ``torch.Generator`` draws the jitter, then the coin."""
+    if rng is None:
+        return None
+    if isinstance(rng, RayDraws):
+        return RayDraws(*(None if t is None else t.to(device) for t in rng))
+    if not isinstance(rng, torch.Generator):
+        raise TypeError(f"rng must be None, RayDraws or a torch.Generator, "
+                        f"got {type(rng).__name__}")
+    jitter = torch.rand(n_rays, generator=rng, device=rng.device)
+    coin = torch.rand((), generator=rng, device=rng.device)
+    return RayDraws(jitter.to(device), coin.to(device))
 
 
 class RenderState(NamedTuple):
@@ -173,19 +197,22 @@ def _ray_tmin(state: RenderState, rays: torch.Tensor):
     return rays_o, rays_d, torch.minimum(torch.maximum(t_min, nears), fars)
 
 
-def _softplus(x: torch.Tensor) -> torch.Tensor:
-    # log(1 + e^x), as jax.nn.softplus: F.softplus is the identity above 20
-    return torch.logaddexp(x, torch.zeros((), device=x.device))
+_softplus = tf._softplus
 
 
-def sample_points_in_box(rays, state: RenderState, n_samples: int):
-    """AABB-clipped uniform samples along each ray, without jitter.
+def sample_points_in_box(rays, state: RenderState, n_samples: int,
+                         perturb: float = 0.0,
+                         jitter: Optional[torch.Tensor] = None):
+    """AABB-clipped uniform samples along each ray; with ``jitter`` [R] the
+    whole ladder of a ray moves by ``perturb * jitter`` steps.
 
     rays [R, 8] = [o, d, near, far]. Returns (xyz [R,S,3], z_vals [R,S],
     in_box mask [R,S])."""
     rays_o, rays_d, t_min = _ray_tmin(state, rays)
     steps = torch.arange(n_samples, dtype=torch.float32,
                          device=rays.device)[None, :]
+    if jitter is not None and perturb != 0:
+        steps = steps + (perturb * jitter)[:, None]
     z_vals = t_min[:, None] + steps * state.step_size
     xyz = rays_o[:, None, :] + rays_d[:, None, :] * z_vals[..., None]
     in_box = torch.all((xyz >= state.bbox_aabb[0]) & (xyz <= state.bbox_aabb[1]),
@@ -201,18 +228,34 @@ def _intervals(z_vals):
     return dists, mids
 
 
-def _density_weights(mcfg, rcfg, state, rays, fused: FusedGrids):
-    """Density at every sample through the brick-atlas kernel, then alpha
-    compositing weights (the brick-atlas branch of the JAX function).
-    Returns (xyz_n, z_vals, dists, mids, weight)."""
-    xyz, z_vals, in_box = sample_points_in_box(rays, state, rcfg.n_samples)
+def _density_at(params, mcfg, fused: Optional[FusedGrids], flat):
+    """Density (after softplus) at [P,3] normalized coords: through the
+    brick-atlas kernel, the cell-corner rows, or the VM factors."""
+    if fused is not None and fused.brick_atlas is not None:
+        return _softplus(sample_density_brick(fused, flat,
+                                              mcfg.splus_density_shift))
+    if fused is not None:
+        return _softplus(sample_density_fused(fused, flat,
+                                              mcfg.splus_density_shift))
+    return tf.compute_density(params, mcfg, flat)
+
+
+def _density_weights(params, mcfg, rcfg, state, rays, jitter=None,
+                     stop_grad: bool = False,
+                     fused: Optional[FusedGrids] = None):
+    """Density at every sample, then alpha-compositing weights. With
+    ``stop_grad`` no gradient flows back to the field. Returns (xyz_n,
+    z_vals, in_box, dists, mids, alpha, weight, bg_weight)."""
+    xyz, z_vals, in_box = sample_points_in_box(rays, state, rcfg.n_samples,
+                                               rcfg.perturb, jitter)
     dists, mids = _intervals(z_vals)
     xyz_n = normalize_coordinates(state, xyz)
-    raw = sample_density_brick(fused, xyz_n.reshape(-1, 3),
-                               mcfg.splus_density_shift)
-    sigma = torch.where(in_box, _softplus(raw).reshape(xyz.shape[:2]), 0.0)
-    _, weight, _ = raw_to_alpha(sigma, dists * rcfg.distance_scale)
-    return xyz_n, z_vals, dists, mids, weight
+    with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_grad):
+        sigma = _density_at(params, mcfg, fused,
+                            xyz_n.reshape(-1, 3)).reshape(xyz.shape[:2])
+    sigma = torch.where(in_box, sigma, 0.0)
+    alpha, weight, bg_weight = raw_to_alpha(sigma, dists * rcfg.distance_scale)
+    return xyz_n, z_vals, in_box, dists, mids, alpha, weight, bg_weight
 
 
 def occ_grouping_for(rcfg: RenderConfig, state: RenderState,
@@ -256,40 +299,95 @@ def _first_k_set(mask: torch.Tensor, k: int):
     return torch.clamp(idx, max=mask.shape[1] - 1), valid
 
 
+def _select_segments(mcfg, rcfg: RenderConfig, state: RenderState,
+                     rays_o, rays_d, t_min, fused: FusedGrids):
+    """Level 1: the midpoint of every ``coarse_stride`` segment is tested
+    against the block-dilated occupancy (one bit-packed neighborhood row per
+    ``occ_group_l1`` consecutive tests when the grids carry them), and the
+    first ``max_segments`` occupied ones are kept. Port of
+    ``_select_segments``. Returns (seg_idx [R, k_seg] nearest-first,
+    seg_valid [R, k_seg])."""
+    cs = rcfg.coarse_stride
+    S_c = -(-rcfg.n_samples // cs)
+    k_seg = min(rcfg.max_segments, S_c)
+    R = rays_o.shape[0]
+    group = rcfg.occ_group_l1 if fused.occ_bits_group is not None else 0
+    S_cp = -(-S_c // group) * group if group >= 2 else S_c
+    # pad midpoints lie further along the ray; their tests are sliced away
+    steps_c = ((torch.arange(S_cp, dtype=torch.float32, device=rays_o.device)
+                * cs + 0.5 * cs) * state.step_size)
+    z_c = t_min[:, None] + steps_c[None, :]
+    xyz_c = rays_o[:, None, :] + rays_d[:, None, :] * z_c[..., None]
+    xyz_cn = normalize_coordinates(state, xyz_c)
+    if group >= 2:
+        occupied = sample_occ_bits_grouped(fused, xyz_cn, group)[:, :S_c]
+    else:
+        raw_up = sample_coarse_occ(fused, xyz_cn.reshape(-1, 3)).reshape(R, S_cp)
+        occupied = _occ_alpha_test(mcfg, rcfg, state, raw_up)
+    return _first_k_set(occupied, k_seg)
+
+
 def _select_subsegments(mcfg, rcfg: RenderConfig, state: RenderState,
-                        rays_o, rays_d, t_min, fused: FusedGrids):
-    """L2-only selection: every sub-segment of ``sub_stride`` samples is a
-    candidate, its midpoint is tested against the tight occupancy (one
-    neighborhood row per ``l2_flat_group`` consecutive candidates), and the
-    first ``max_subsegments`` occupied ones are kept. The L2-flat
-    (``seg_idx is None``) branch of ``_select_subsegments``.
+                        rays_o, rays_d, t_min, fused: FusedGrids,
+                        seg_idx=None, seg_valid=None):
+    """Level 2: sub-segment midpoints against the tight occupancy, the first
+    ``max_subsegments`` occupied ones kept. With ``seg_idx=None`` (L2-only)
+    every sub-segment of the ray is a candidate and ``l2_flat_group``
+    consecutive tests share one neighborhood row; otherwise the candidates
+    are the sub-segments of the selected segments, one row per segment with
+    ``occ_group_l2``. Port of ``_select_subsegments``.
 
     Returns (fine_steps [R, k_sub, sub] in sample steps, sample_valid
     [R, k_sub, sub], needed [R] occupied candidates per ray)."""
     S = rcfg.n_samples
     sub = rcfg.sub_stride
     R = rays_o.shape[0]
-    cand = -(-S // sub)
-    g = rcfg.l2_flat_group if fused.occ_bits_group_tight is not None else 0
-    candp = -(-cand // g) * g if g >= 2 else cand
-    # pad candidates lie further along the ray (same spacing, so the group
-    # span holds); their tests are sliced away
-    sub_steps_p = (torch.arange(candp, dtype=torch.float32,
-                                device=rays_o.device) * sub + 0.5 * sub)
-    z_s = t_min[:, None] + sub_steps_p[None, :] * state.step_size
-    xyz_s = rays_o[:, None, :] + rays_d[:, None, :] * z_s[..., None]
-    xyz_sn = normalize_coordinates(state, xyz_s)
-    if g >= 2:
-        occ2 = sample_occ_bits_grouped(fused, xyz_sn, g, tight=True)[:, :cand]
+    dev = rays_o.device
+    if seg_idx is None:
+        cand = -(-S // sub)
+        g = rcfg.l2_flat_group if fused.occ_bits_group_tight is not None else 0
+        candp = -(-cand // g) * g if g >= 2 else cand
+        # pad candidates lie further along the ray (same spacing, so the
+        # group span holds); their tests are sliced away
+        sub_steps_p = (torch.arange(candp, dtype=torch.float32, device=dev)
+                       * sub + 0.5 * sub)
+        z_s = t_min[:, None] + sub_steps_p[None, :] * state.step_size
+        xyz_s = rays_o[:, None, :] + rays_d[:, None, :] * z_s[..., None]
+        xyz_sn = normalize_coordinates(state, xyz_s)
+        if g >= 2:
+            occ2 = sample_occ_bits_grouped(fused, xyz_sn, g, tight=True)[:, :cand]
+        else:
+            raw_up2 = sample_coarse_occ(fused, xyz_sn.reshape(-1, 3),
+                                        tight=True).reshape(R, candp)[:, :cand]
+            occ2 = _occ_alpha_test(mcfg, rcfg, state, raw_up2)
+        occ2 = occ2 & (sub_steps_p[None, :cand] < S)
     else:
-        raw_up2 = sample_coarse_occ(fused, xyz_sn.reshape(-1, 3),
-                                    tight=True).reshape(R, candp)[:, :cand]
-        occ2 = _occ_alpha_test(mcfg, rcfg, state, raw_up2)
-    occ2 = occ2 & (sub_steps_p[None, :cand] < S)
+        cs = rcfg.coarse_stride
+        n_sub = cs // sub
+        cand = seg_idx.shape[1] * n_sub
+        sub_j = torch.arange(n_sub, dtype=torch.float32, device=dev)
+        sub_steps = (seg_idx[..., None].to(torch.float32) * cs
+                     + sub_j * sub + 0.5 * sub).reshape(R, cand)
+        z_s = t_min[:, None] + sub_steps * state.step_size
+        xyz_s = rays_o[:, None, :] + rays_d[:, None, :] * z_s[..., None]
+        xyz_sn = normalize_coordinates(state, xyz_s)
+        if rcfg.occ_group_l2 and fused.occ_bits_group_tight is not None:
+            # one row per segment serves its n_sub tests
+            occ2 = sample_occ_bits_grouped(fused, xyz_sn, n_sub, tight=True)
+        else:
+            raw_up2 = sample_coarse_occ(fused, xyz_sn.reshape(-1, 3),
+                                        tight=True).reshape(R, cand)
+            occ2 = _occ_alpha_test(mcfg, rcfg, state, raw_up2)
+        occ2 = (occ2 & torch.repeat_interleave(seg_valid, n_sub, dim=1)
+                & (sub_steps < S))
     sub_idx, sub_valid = _first_k_set(occ2, min(rcfg.max_subsegments, cand))
-    # candidate j starts at sample step j * sub
-    offs = torch.arange(sub, dtype=torch.float32, device=rays_o.device)
-    fine_steps = (sub_idx.to(torch.float32) * sub)[..., None] + offs
+    if seg_idx is None:
+        # candidate j starts at sample step j * sub
+        sub_start = sub_idx.to(torch.float32) * sub
+    else:
+        sub_start = torch.gather(sub_steps - 0.5 * sub, 1, sub_idx)
+    offs = torch.arange(sub, dtype=torch.float32, device=dev)
+    fine_steps = sub_start[..., None] + offs
     sample_valid = (fine_steps < S) & sub_valid[..., None]
     return fine_steps, sample_valid, torch.sum(occ2, dim=1)
 
@@ -309,16 +407,16 @@ def fine_positions(state: RenderState, rays_o, rays_d, t_min, fine_steps,
 def _fine_density(mcfg, rcfg: RenderConfig, state: RenderState,
                   rays_o, rays_d, t_min, fused: FusedGrids,
                   fine_steps, sample_valid):
-    """Exact density at the selected fine samples through the brick-atlas
-    kernel, then compositing weights (brick-atlas branch of
-    ``_fine_density``). Returns (xyz_n, z_vals, in_box, dists, mids, alpha,
-    weight, bg_weight)."""
+    """Exact density at the selected fine samples (through the brick-atlas
+    kernel, or the cell-corner rows of training's grids), then compositing
+    weights. Returns (xyz_n, z_vals, in_box, dists, mids, alpha, weight,
+    bg_weight)."""
     R = rays_o.shape[0]
     z_vals, in_box, xyz_n = fine_positions(state, rays_o, rays_d, t_min,
                                            fine_steps, sample_valid)
-    raw = sample_density_brick(fused, xyz_n.reshape(-1, 3),
-                               mcfg.splus_density_shift)
-    sigma = torch.where(in_box, _softplus(raw).reshape(R, -1), 0.0)
+    sigma = torch.where(in_box, _density_at(None, mcfg, fused,
+                                            xyz_n.reshape(-1, 3)).reshape(R, -1),
+                        0.0)
     # per-sample interval = step (uniform marching), as in the dense path
     dists = state.step_size.expand_as(z_vals)
     mids = z_vals + 0.5 * state.step_size
@@ -333,24 +431,47 @@ def _tail_weight(weight: torch.Tensor, group: int) -> torch.Tensor:
 
 
 def _two_level_density(mcfg, rcfg: RenderConfig, state: RenderState,
-                       rays: torch.Tensor, fused: FusedGrids):
-    """Density with empty-space skipping: L2-only selection, then the fine
-    density in one pass, or in two with early termination (``term_first``):
-    pass A on every ray's first ``term_first`` sub-segments, pass B on the
-    ``term_fraction`` rays with the largest residual transmittance among those
-    with candidates left, spliced by T_B *= T_A. Port of
-    ``_two_level_density`` (its heavy/light bucketing and L1 cascade raise).
+                       rays: torch.Tensor, fused: FusedGrids,
+                       jitter: Optional[torch.Tensor] = None):
+    """Density with empty-space skipping: the L1 segment selection
+    (``_select_segments``) unless the selection is L2-only (``use_l1``
+    False), the L2 sub-segment selection when ``sub_stride`` is finer, then
+    the fine density in one pass, or in two with early termination
+    (``term_first``): pass A on every ray's first ``term_first``
+    sub-segments, pass B on the ``term_fraction`` rays with the largest
+    residual transmittance among those with candidates left, spliced by
+    T_B *= T_A. With ``jitter`` [R] (training) the whole sample ladder of a
+    ray moves by ``perturb * jitter`` steps. Port of ``_two_level_density``
+    (its heavy/light bucketing raises).
 
     Returns (xyz_n, z_vals, in_box, dists, mids, alpha, weight, bg_weight,
-    budget_tail) with K = max_subsegments * sub_stride samples per ray."""
+    budget_tail) with K = max_subsegments * sub_stride (or max_segments *
+    coarse_stride) samples per ray."""
     R = rays.shape[0]
+    cs = rcfg.coarse_stride
     rays_o, rays_d, t_min = _ray_tmin(state, rays)
-    fine_steps, sample_valid, _ = _select_subsegments(
-        mcfg, rcfg, state, rays_o, rays_d, t_min, fused)
-    group = rcfg.sub_stride
+    if jitter is not None and rcfg.perturb != 0:
+        t_min = t_min + rcfg.perturb * jitter * state.step_size
+    use_sub = (rcfg.sub_stride is not None and rcfg.sub_stride < cs
+               and fused.coarse_occ_tight is not None)
+    seg_idx = seg_valid = None
+    if not (use_sub and not rcfg.use_l1):
+        seg_idx, seg_valid = _select_segments(mcfg, rcfg, state, rays_o,
+                                              rays_d, t_min, fused)
+    if use_sub:
+        fine_steps, sample_valid, _ = _select_subsegments(
+            mcfg, rcfg, state, rays_o, rays_d, t_min, fused, seg_idx,
+            seg_valid)
+        group = rcfg.sub_stride
+    else:
+        # every fine sample of the selected segments
+        offs = torch.arange(cs, dtype=torch.float32, device=rays.device)
+        fine_steps = seg_idx[..., None].to(torch.float32) * cs + offs
+        sample_valid = (fine_steps < rcfg.n_samples) & seg_valid[..., None]
+        group = cs
     k_sub = fine_steps.shape[1]
     kA = rcfg.term_first
-    if 0 < kA < k_sub:
+    if use_sub and 0 < kA < k_sub:
         n_s = max(1, min(R, int(round(R * rcfg.term_fraction))))
         out_a = _fine_density(mcfg, rcfg, state, rays_o, rays_d, t_min, fused,
                               fine_steps[:, :kA], sample_valid[:, :kA])
@@ -393,7 +514,7 @@ def _two_level_density(mcfg, rcfg: RenderConfig, state: RenderState,
                 tail, torch.amax(torch.clamp(T_live[order[:R - n_s]], min=0.0)))
         return tuple(merged) + (tail,)
     hn = int(round(R * rcfg.heavy_fraction))
-    if 0 < rcfg.max_subsegments_light < k_sub and 0 < hn < R:
+    if use_sub and 0 < rcfg.max_subsegments_light < k_sub and 0 < hn < R:
         raise NotImplementedError(
             "max_subsegments_light > 0 (heavy/light ray bucketing) is not "
             "ported; render with termination (term_first), as "
@@ -439,6 +560,12 @@ def calibrate_budgets(mcfg, rcfg: RenderConfig, state: RenderState,
     check_ported(rcfg)
     if rcfg.coarse_stride is None or fused.coarse_occ is None:
         return rcfg
+    if (rcfg.use_l1 or rcfg.sub_stride is None
+            or rcfg.sub_stride >= rcfg.coarse_stride):
+        raise NotImplementedError(
+            "calibrate_budgets: the L1 segment budget (use_l1=True, or no "
+            "finer sub_stride) is not ported; calibrate L2-only selection "
+            "(render_frames(l2_only=True))")
     probe = torch.as_tensor(np.asarray(probe_rays, np.float32),
                             device=fused.brick_atlas.device)
     cs = rcfg.coarse_stride
@@ -512,9 +639,10 @@ def calibrate_budgets(mcfg, rcfg: RenderConfig, state: RenderState,
     return out
 
 
-def _branch_feats(fused: FusedGrids, name: str, flat):
-    """Dense-grid features of a VM branch, or None for an xyz-MLP head."""
-    if name in fused.features:
+def _branch_feats(fused: Optional[FusedGrids], name: str, flat):
+    """Dense-grid features of a VM branch, or None: the head then samples
+    the VM factors directly (or reads xyz, for an MLP head)."""
+    if fused is not None and name in fused.features:
         return sample_feature_fused(fused, name, flat)
     return None
 
@@ -544,12 +672,14 @@ def _head_select(weight: torch.Tensor, k: int):
 
 
 def _head_weights(rcfg, weight):
-    """The per-sample compositing weights used for semantic/instance heads."""
+    """The per-sample compositing weights used for semantic/instance heads
+    (no gradient to the density with ``stop_semantic_grad``)."""
+    w = weight[..., None]
     if rcfg.semantic_weight_mode == "argmax":
         hot = torch.nn.functional.one_hot(torch.argmax(weight, dim=1),
                                           weight.shape[1]).to(weight.dtype)
-        return hot[..., None]
-    return weight[..., None]
+        w = hot[..., None]
+    return w.detach() if rcfg.stop_semantic_grad else w
 
 
 def _app_block(params, mcfg, fused, xyz_s, view_r, mask_s, compute_dtype):
@@ -671,30 +801,31 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
     guardrails ``budget_tail`` and ``head_tail`` (``dedup_tail`` is 0: head
     dedup is not ported).
 
-    Inference only (``is_train`` and ``rng`` belong to training, not ported).
-    ``fused`` are the grids of ``ops/fused_grid.py::build_render_grids``; the
-    density of every evaluated sample goes through the brick-atlas kernel.
-    With occupancy tables and ``coarse_stride`` the samples are selected by
-    empty-space skipping; with ``head_topk`` the heads run on the k
-    heaviest samples per ray."""
-    if is_train or rng is not None:
-        raise NotImplementedError("render_rays: is_train / rng (training "
-                                  "render) is not ported")
-    if fused is None:
-        raise NotImplementedError("render_rays: fused=None (direct VM "
-                                  "sampling) is not ported; pass "
-                                  "build_render_grids(...)")
+    ``fused``: the grids of ``ops/fused_grid.py::build_render_grids`` (the
+    density of every sample through the brick-atlas kernel, head features
+    from the dense grids), of ``build_density_only`` (training: density from
+    the cell-corner rows, heads sampling the VM factors), or None (the VM
+    factors sampled directly). With occupancy tables and ``coarse_stride``
+    the samples are selected by empty-space skipping, except in training;
+    with ``head_topk`` the heads run on the k heaviest samples per ray.
+
+    ``is_train`` with ``rng`` (a ``torch.Generator`` or ``RayDraws``)
+    jitters the samples and flips the background coin; training takes no
+    two-phase heads and no tail completion, as in the JAX package."""
     if mcfg.use_distilled:
         raise NotImplementedError("render_rays: distilled-feature heads "
                                   "(use_distilled_features_*) are not ported")
-    two_level = rcfg.coarse_stride is not None and fused.coarse_occ is not None
-    check_ported(rcfg, two_level)
+    check_ported(rcfg)
+    draws = ray_draws(rng, rays.shape[0], rays.device) if is_train else None
+    jitter = draws.jitter if draws is not None else None
+    two_level = (rcfg.coarse_stride is not None and fused is not None
+                 and fused.coarse_occ is not None and not is_train)
     if two_level:
         (xyz_n, z_vals, _, dists, mids, _, weight, _,
          budget_tail) = _two_level_density(mcfg, rcfg, state, rays, fused)
     else:
-        xyz_n, z_vals, dists, mids, weight = _density_weights(
-            mcfg, rcfg, state, rays, fused)
+        xyz_n, z_vals, _, dists, mids, _, weight, _ = _density_weights(
+            params, mcfg, rcfg, state, rays, jitter, fused=fused)
         budget_tail = torch.zeros((), device=weight.device)
     R, S = weight.shape
     dist_reg = distortion_loss(weight, mids, dists)
@@ -715,9 +846,9 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
         xyz_h, head_weight, Sh, k2 = xyz_n, weight, S, S
     app_mask = head_weight > rcfg.raymarch_weight_thres         # [R, Sh]
     m_full = None
-    if rcfg.head_tail_complete and topk:
+    if rcfg.head_tail_complete and topk and not is_train:
         m_full = torch.sum(weight * (weight > rcfg.raymarch_weight_thres), -1)
-    if topk and 0 < rcfg.head_term_first < Sh:
+    if topk and 0 < rcfg.head_term_first < Sh and not is_train:
         rgb_map, semantic_map, instance_map, head_tail = _heads_two_phase(
             params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
             compute_dtype, head_tail, m_full)
@@ -725,21 +856,146 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
         rgb_map, semantic_map, instance_map = _heads_one_pass(
             params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
             compute_dtype, m_full)
-    out = _finish_maps(rcfg, weight, z_vals, torch.sum(weight, -1), rgb_map,
-                       _semantic_map_postprocess(rcfg, semantic_map),
+    coin = draws.coin if draws is not None else None
+    out = _finish_maps(rcfg, coin, weight, z_vals, torch.sum(weight, -1),
+                       rgb_map, _semantic_map_postprocess(rcfg, semantic_map),
                        instance_map, dist_reg)
     out.update(budget_tail=budget_tail, head_tail=head_tail,
                dedup_tail=torch.zeros((), device=weight.device))
     return out
 
 
-def _finish_maps(rcfg, weight, z_vals, opacity, rgb_map, semantic_map,
+def _finish_maps(rcfg, coin, weight, z_vals, opacity, rgb_map, semantic_map,
                  instance_map, dist_reg):
-    """Map finishing at inference: white-background compositing, depth."""
-    if rcfg.white_bg:
+    """Map finishing: white-background compositing (in training also where
+    the coin, a U[0,1) draw, falls below 0.5), depth."""
+    white = rcfg.white_bg
+    if coin is not None:
+        white = white | (coin < 0.5)
+    if isinstance(white, torch.Tensor):
+        rgb_map = torch.where(white, rgb_map + (1.0 - opacity[..., None]),
+                              rgb_map)
+    elif white:
         rgb_map = rgb_map + (1.0 - opacity[..., None])
     rgb_map = torch.clamp(rgb_map, 0.0, 1.0)
     depth_map = torch.sum(weight * z_vals, -1)
     return {"rgb": rgb_map, "semantics": semantic_map,
             "instances": instance_map, "depth": depth_map,
             "dist_reg": dist_reg, "opacity": opacity}
+
+
+# ---------------------------------------------------------------------------
+# The stop-gradient passes of training (instance and segment losses)
+# ---------------------------------------------------------------------------
+
+def _aux_topk(rcfg: RenderConfig, weight, xyz_n, z_vals, live=None):
+    """The k heaviest samples per ray (``head_topk``) for the stop-gradient
+    passes: exact while at most k samples of a ray clear
+    ``raymarch_weight_thres``, since only those reach the heads. Returns
+    (w_k, xyz_k, z_k, tail), ``tail`` the fraction of live rays with more
+    than k samples above the threshold (0: this batch was exact). Port of
+    ``_aux_topk`` (its "sort" mode)."""
+    R, S = weight.shape
+    if rcfg.head_topk is None or rcfg.head_topk >= S:
+        return weight, xyz_n, z_vals, torch.zeros((), device=weight.device)
+    k = rcfg.head_topk
+    over = torch.sum(weight > rcfg.raymarch_weight_thres, dim=-1) > k
+    if live is not None:
+        # zero-padded stream rays must not trip the guardrail
+        over = over & live
+    tail = torch.mean(over.to(torch.float32))
+    w_k, idx, _ = _head_select(weight, k)
+    xyz_k = torch.gather(xyz_n, 1, idx[..., None].expand(*idx.shape, 3))
+    return w_k, xyz_k, torch.gather(z_vals, 1, idx), tail
+
+
+def aux_density_weights(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
+                        state: RenderState, rays, rng, is_train: bool,
+                        fused: Optional[FusedGrids]):
+    """Stop-gradient density and weights for the aux passes, with
+    train-time empty-space skipping when the grids carry occupancy and
+    ``coarse_stride`` is set. Returns (xyz_n, z_vals, weight, budget_tail),
+    ``budget_tail`` the largest compositing weight in the deepest kept group
+    over live rays (0 without skipping). Port of ``aux_density_weights``."""
+    draws = ray_draws(rng, rays.shape[0], rays.device) if is_train else None
+    jitter = draws.jitter if draws is not None else None
+    with torch.no_grad():
+        if (fused is not None and fused.coarse_occ is not None
+                and rcfg.coarse_stride is not None):
+            out = _two_level_density(mcfg, rcfg, state, rays, fused, jitter)
+            xyz_n, z_vals, weight = out[0], out[1], out[6]
+            # zero-padded stream rays degenerate to one in-box point and
+            # would trip the guardrail: mask them out
+            live = torch.any(rays[:, 3:6] != 0, dim=-1)
+            group = rcfg.sub_stride or rcfg.coarse_stride
+            budget_tail = torch.amax(torch.where(
+                live, torch.sum(weight[:, -group:], dim=-1), 0.0))
+        else:
+            xyz_n, z_vals, _, _, _, _, weight, _ = _density_weights(
+                params, mcfg, rcfg, state, rays, jitter, stop_grad=True,
+                fused=fused)
+            budget_tail = torch.zeros((), device=weight.device)
+    return xyz_n, z_vals, weight, budget_tail
+
+
+def _aux_heads(params, mcfg, rcfg, state, rays, rng, is_train, fused):
+    """Shared front of the aux passes: (weight_k, flat xyz_k, app_mask,
+    compute dtype, distance map, tail, budget_tail)."""
+    if mcfg.use_distilled:
+        raise NotImplementedError("distilled-feature heads "
+                                  "(use_distilled_features_*) are not ported")
+    check_ported(rcfg)
+    xyz_n, z_vals, weight, budget_tail = aux_density_weights(
+        params, mcfg, rcfg, state, rays, rng, is_train, fused)
+    distance_map = torch.sum(weight * z_vals, -1)
+    live = torch.any(rays[:, 3:6] != 0, dim=-1)
+    weight, xyz_n, z_vals, tail = _aux_topk(rcfg, weight, xyz_n, z_vals, live)
+    app_mask = (weight > rcfg.raymarch_weight_thres).reshape(-1, 1)
+    # the heads honor head_dtype; compositing promotes back to float32
+    compute_dtype = (torch.bfloat16 if rcfg.head_dtype == "bfloat16"
+                     else torch.float32)
+    return (weight, xyz_n.reshape(-1, 3), app_mask, compute_dtype,
+            distance_map, tail, budget_tail)
+
+
+def render_instance_features(params, mcfg: tf.TensoRFConfig,
+                             rcfg: RenderConfig, state: RenderState,
+                             rays: torch.Tensor, rng=None,
+                             is_train: bool = True,
+                             fused: Optional[FusedGrids] = None,
+                             return_tail: bool = False):
+    """Instance-embedding pass on stop-gradient weights. Returns
+    (instance_map [R, D], surface points [R, 3]); with ``return_tail`` also
+    the ``_aux_topk`` and skipping guardrails. Port of
+    ``render_instance_features``."""
+    (weight, flat, app_mask, compute_dtype, distance_map, tail,
+     budget_tail) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
+                               is_train, fused)
+    R, S = weight.shape
+    instances = tf.render_instances(params, mcfg, flat, None, compute_dtype)
+    instances = torch.where(app_mask, instances, 0.0).reshape(R, S, -1)
+    instance_map = composite(weight, instances)
+    points_xyz = (rays[:, 0:3] + distance_map[:, None] * rays[:, 3:6]).detach()
+    if return_tail:
+        return instance_map, points_xyz, tail, budget_tail
+    return instance_map, points_xyz
+
+
+def render_segment_features(params, mcfg: tf.TensoRFConfig,
+                            rcfg: RenderConfig, state: RenderState,
+                            rays: torch.Tensor, rng=None,
+                            is_train: bool = True,
+                            fused: Optional[FusedGrids] = None,
+                            return_tail: bool = False):
+    """Semantic-logit pass on stop-gradient weights, for the segment-grouping
+    loss. Port of ``render_segment_features``."""
+    (weight, flat, app_mask, compute_dtype, _, tail,
+     budget_tail) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
+                               is_train, fused)
+    R, S = weight.shape
+    segments = tf.render_semantics(params, mcfg, flat, None, compute_dtype)
+    segments = torch.where(app_mask, segments, 0.0).reshape(R, S, -1)
+    segment_map = _semantic_map_postprocess(rcfg, composite(weight, segments))
+    if return_tail:
+        return segment_map, tail, budget_tail
+    return segment_map

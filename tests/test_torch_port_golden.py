@@ -17,6 +17,18 @@ production path, at the PQ gate's production point
 top-8 bf16 heads, chunks of 4,096 rays), and writes
 ``contrastive_lift_tpu_torch/testdata/r5b_production_golden.npz``; add the
 argument ``production`` to the command above.
+
+``write_train_step_golden()`` takes one training step of r5b with the JAX
+package, eagerly: resumed from ``final.npz`` and its optimizer state, on
+r5b's own configuration (``artifacts/e2e_r5b_tpu/config.json``) and
+synthetic scene, at the checkpoint's epoch (every phase open), with the
+calibrated head budget, the first batches of the sampler seed and the draws
+of the step's key. It writes
+``contrastive_lift_tpu_torch/testdata/r5b_train_step_golden.npz``: the seed,
+the draws, the budget, every loss and guardrail metric, and per parameter
+leaf the sketches (``train/resume.py::leaf_sketch``) of its main-phase and
+instance-phase gradients, of its value after the step and of its change;
+add the argument ``train``.
 """
 import subprocess
 import sys
@@ -34,12 +46,16 @@ from contrastive_lift_tpu_torch.inference.fidelity import (  # noqa: E402
 
 GOLDEN = ROOT / "contrastive_lift_tpu_torch" / "testdata" / "r5b_dense_golden.npz"
 PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
+TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
 RAY_STRIDE = 12
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 # a golden ray counts as moved by jit where a map differs by more than this
 JIT_ATOL = 1e-4
 COMMAND = "JAX_PLATFORMS=cpu python tests/test_torch_port_golden.py"
 PRODUCTION_COMMAND = COMMAND + " production"
+TRAIN_COMMAND = COMMAND + " train"
+# the training golden's sampler seed
+TRAIN_SEED = 0
 
 
 def write_golden(path=GOLDEN) -> dict:
@@ -184,6 +200,141 @@ def write_production_golden(path=PRODUCTION_GOLDEN) -> dict:
     return out
 
 
+def write_train_step_golden(path=TRAIN_GOLDEN) -> dict:
+    """One eager JAX training step of r5b, resumed from its checkpoint; save
+    the golden (see the module docstring). The gradients are those of the
+    step's two ``value_and_grad`` calls, recomputed here with the JAX
+    package's phase losses on the same inputs; the step itself
+    (``make_train_step``) gives the metrics and the parameters after it,
+    and its main loss must equal the recomputed one."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from contrastive_lift_tpu.config import load_config
+    from contrastive_lift_tpu.data.base import (InstanceBundleSampler,
+                                                RayPoolSampler,
+                                                SegmentBundleSampler)
+    from contrastive_lift_tpu.factory import (class_weights_for,
+                                              make_model_config,
+                                              make_render_config)
+    from contrastive_lift_tpu.io.checkpoint import (load_checkpoint,
+                                                    restore_opt_state)
+    from contrastive_lift_tpu.renderer import render as R
+    from contrastive_lift_tpu.train import step as S
+    from contrastive_lift_tpu.train.loop import Trainer
+    from contrastive_lift_tpu.train.schedule import lr_scale_for_epoch
+    from contrastive_lift_tpu.train.state import (TrainState, ema_update_slow,
+                                                  init_train_state,
+                                                  make_optimizers)
+    from contrastive_lift_tpu_torch.inference.fidelity import R5B_CONFIG
+    from contrastive_lift_tpu_torch.train.resume import TRAIN_METRICS, leaf_sketches
+    from contrastive_lift_tpu_torch.utils.tree import (path_str,
+                                                       tree_leaves_with_path)
+    from tools.pq_fidelity_gate import e2e_scene
+    from types import SimpleNamespace
+
+    scene = e2e_scene(*R5B_SCENE)
+    cfg = load_config(R5B_CONFIG)
+    params, meta = load_checkpoint(R5B_CKPT)
+    params = jax.tree.map(jnp.asarray, params)
+    grid_dim = tuple(meta["grid_dim"])
+    bbox = np.asarray(meta["bbox_aabb"], np.float32)
+    epoch, global_step = int(meta["epoch"]), int(meta["global_step"])
+    if any(e < epoch for e in cfg.grid_upscale_epochs):
+        cfg.weight_decay = 0.0          # as Trainer.restore
+    mcfg = make_model_config(cfg, scene.num_semantic_classes)
+    rcfg = make_render_config(cfg, bbox, grid_dim, mcfg,
+                              white_bg=scene.white_bg)
+    state_r = R.make_render_state(bbox, grid_dim)
+    weights = class_weights_for(cfg, scene.segmentation)
+    fresh = init_train_state(cfg, params)
+    opt_main, opt_inst = restore_opt_state(
+        (fresh.opt_state_main, fresh.opt_state_inst), meta["opt_leaves"])
+    state = TrainState(params, opt_main, opt_inst,
+                       jnp.asarray(global_step, jnp.int32))
+    gates = S.gates_for_epoch(cfg, epoch)
+    lr_scale = lr_scale_for_epoch(epoch, cfg.decay_step, cfg.decay_gamma,
+                                  cfg.warmup_epochs, cfg.warmup_multiplier)
+    lambda_dist = cfg.lambda_dist_reg * (1 - np.exp(-0.25 * epoch))
+    frames = scene.train_frames
+    main_s = RayPoolSampler(frames, scene.num_semantic_classes)
+    inst_s = InstanceBundleSampler(frames, cfg.max_rays_instances,
+                                   cfg.max_labels_per_image)
+    seg_s = SegmentBundleSampler(frames, cfg.max_rays_segments)
+    stub = SimpleNamespace(cfg=cfg, rcfg=rcfg, main_sampler=main_s, mcfg=mcfg,
+                           grid_dim=grid_dim, state_r=state_r,
+                           state=state, _count_fn=None, _count_key=None)
+    rng = np.random.default_rng(TRAIN_SEED)
+    bm = main_s.sample(rng, cfg.batch_size)
+    bi = inst_s.sample(rng, cfg.batch_size_contrastive)
+    bs = seg_s.sample(rng, cfg.batch_size_segments)
+    key = jax.random.PRNGKey(global_step)       # as Trainer.train_epoch
+    rng_main, rng_seg, rng_inst = jax.random.split(key, 3)
+    rng_pts, rng_bg = jax.random.split(rng_main)
+    n_chunk = min(cfg.chunk_segment, len(bs["rays"]))
+    draws = dict(
+        draw_main_jitter=np.asarray(jax.random.uniform(
+            rng_pts, (cfg.batch_size, 1)))[:, 0],
+        draw_main_coin=np.asarray(jax.random.uniform(rng_bg, ())),
+        draw_seg_jitter=np.asarray(jax.random.uniform(rng_seg, (n_chunk,))),
+        draw_inst_jitter=np.stack([
+            np.asarray(jax.random.uniform(k, (bi["rays"].shape[1],)))
+            for k in jax.random.split(rng_inst, bi["rays"].shape[0])]))
+    main_tx, inst_tx, _ = make_optimizers(cfg, params)
+
+    with jax.disable_jit():
+        k = Trainer._calibrate_aux_topk(stub, gates, epoch)
+
+        def loss_fn(p):
+            loss, m = S.main_phase_loss(p, cfg, mcfg, rcfg, state_r, gates,
+                                        bm, rng_main, lambda_dist, weights,
+                                        head_topk=k)
+            seg, _, _ = S.segment_phase_loss(p, cfg, mcfg, rcfg, state_r, bs,
+                                             rng_seg, weights, k)
+            return loss + cfg.lambda_semantics * cfg.lambda_segment * seg, m
+
+        (loss_main, _), grads = jax.value_and_grad(loss_fn, has_aux=True)(
+            params)
+        updates, _ = main_tx.update(grads, opt_main, params)
+        p1 = jax.tree.map(lambda a, u: a + u * lr_scale, params, updates)
+
+        def inst_loss_fn(p):
+            return S.instance_phase_loss(p, cfg, mcfg, rcfg, state_r, bi,
+                                         rng_inst, k)[0]
+
+        grads_i = jax.grad(inst_loss_fn)(p1)
+        step = S.make_train_step(cfg, mcfg, rcfg, gates, weights, params,
+                                 donate=False, aux_head_topk=k)
+        new_state, metrics = step(state, state_r, bm, bi, bs, key, lr_scale,
+                                  lambda_dist)
+    assert abs(float(metrics["loss_main"]) - float(loss_main)) <= 1e-6 * abs(
+        float(loss_main))
+    leaves = [tree_leaves_with_path(t) for t in (params, grads, grads_i,
+                                                 new_state.params)]
+    out = {"leaf_paths": np.asarray([path_str(p) for p, _ in leaves[0]])}
+    sketches = [leaf_sketches(i, *(np.asarray(t[i][1]) for t in leaves[1:]),
+                              np.asarray(leaves[3][i][1])
+                              - np.asarray(leaves[0][i][1]))
+                for i in range(len(leaves[0]))]
+    for j, name in enumerate(("grad_main", "grad_inst", "after", "delta")):
+        out[f"sketch_{name}"] = np.stack([s[j] for s in sketches])
+    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                            capture_output=True, text=True).stdout.strip()
+    image_dim, num_train, checker_freq = R5B_SCENE
+    out.update(
+        {f"metric_{m}": float(metrics[m]) for m in TRAIN_METRICS},
+        **draws, seed=TRAIN_SEED, aux_head_topk=k, epoch=epoch,
+        global_step=global_step, lr_scale=lr_scale,
+        lambda_dist_reg=lambda_dist, n_samples=rcfg.n_samples,
+        image_dim=np.asarray(image_dim), num_train=num_train,
+        checker_freq=checker_freq, jit=False, commit=commit,
+        command=TRAIN_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
 def test_golden_file_layout():
     """The committed golden holds the maps at every 12th ray of the 4 val
     frames, finite, with the scores and its provenance."""
@@ -273,6 +424,63 @@ def test_port_on_cpu_matches_production_golden():
             assert abs(res[key] - float(g[key])) <= 0.005
 
 
+def test_train_step_golden_layout():
+    """The committed training golden: r5b's step at its checkpoint's epoch
+    with every phase open, the draws of the step's key at the batch shapes,
+    the calibrated budget, finite metrics, and four sketches of each of the
+    checkpoint's parameter leaves; under 1 MB."""
+    from contrastive_lift_tpu_torch.io.checkpoint import load_checkpoint
+    from contrastive_lift_tpu_torch.train.resume import (N_PROBES, SKETCHES,
+                                                         TRAIN_METRICS)
+    from contrastive_lift_tpu_torch.utils.tree import (path_str,
+                                                       tree_leaves_with_path)
+    assert TRAIN_GOLDEN.stat().st_size < 1 << 20
+    params, meta = load_checkpoint(R5B_CKPT)
+    paths = [path_str(p) for p, _ in tree_leaves_with_path(params)]
+    with np.load(TRAIN_GOLDEN) as g:
+        assert list(g["leaf_paths"]) == paths
+        for name in SKETCHES:
+            assert g[f"sketch_{name}"].shape == (len(paths), 1 + N_PROBES)
+            assert np.isfinite(g[f"sketch_{name}"]).all()
+        for m in TRAIN_METRICS:
+            assert np.isfinite(float(g[f"metric_{m}"])), m
+        assert g["draw_main_jitter"].shape == (2048,)
+        assert g["draw_main_coin"].shape == ()
+        assert g["draw_seg_jitter"].shape == (2048,)
+        assert g["draw_inst_jitter"].shape == (1, 1024)
+        for key in ("draw_main_jitter", "draw_seg_jitter", "draw_inst_jitter"):
+            assert 0.0 <= g[key].min() and g[key].max() < 1.0
+        assert int(g["epoch"]) == meta["epoch"]
+        assert int(g["global_step"]) == meta["global_step"]
+        assert 0 < int(g["aux_head_topk"]) < int(g["n_samples"])
+        assert int(g["seed"]) == TRAIN_SEED
+        assert not bool(g["jit"])
+        assert len(str(g["commit"])) == 40
+        assert str(g["command"]) == TRAIN_COMMAND
+        # every phase moved the parameters it trains, and no other
+        moved = g["sketch_delta"][:, 0] > 0
+        trained = (g["sketch_grad_main"][:, 0] > 0) | (
+            g["sketch_grad_inst"][:, 0] > 0)
+        slow = np.char.startswith(g["leaf_paths"], "instance_mlp/slow")
+        np.testing.assert_array_equal(moved, trained | slow)
+
+
+def test_port_on_cpu_matches_train_step_golden():
+    """The port's r5b training step on the CPU (train/resume.py::golden_step)
+    against the eager JAX golden: the calibrated budget equal, every metric
+    within rtol 2e-3, every leaf's sketches within 4.5e-2."""
+    from contrastive_lift_tpu_torch.config import load_config
+    from contrastive_lift_tpu_torch.inference.fidelity import (R5B_CONFIG,
+                                                               e2e_scene)
+    from contrastive_lift_tpu_torch.train.resume import (check_train_step,
+                                                         golden_step)
+    with np.load(TRAIN_GOLDEN) as g:
+        gold = {k: g[k] for k in g.files}
+    res = golden_step(R5B_CKPT, load_config(R5B_CONFIG),
+                      e2e_scene(*R5B_SCENE), gold, device="cpu")
+    assert check_train_step(res, gold) == []
+
+
 @pytest.mark.slow
 def test_golden_regenerates(tmp_path):
     """write_golden() reproduces the committed file: maps within 1e-4 (CPU
@@ -306,7 +514,11 @@ def test_production_golden_regenerates(tmp_path):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["production"]:
+    if sys.argv[1:] == ["train"]:
+        rec = write_train_step_golden()
+        print({k: v for k, v in rec.items() if not k.startswith(("sketch_",
+                                                                 "draw_"))})
+    elif sys.argv[1:] == ["production"]:
         rec = write_production_golden()
         print({k: v for k, v in rec.items() if k not in MAP_KEYS
                and k != "ray_index"})

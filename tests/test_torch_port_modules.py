@@ -63,11 +63,14 @@ def _model(grid=14, **cfg_kw):
 
 
 def test_checkpoint_load_is_identical_to_jax():
-    """r5b loads to the same tree, leaf for leaf, bit for bit; the optimizer
-    leaves are skipped and params_from_numpy keeps structure and values."""
+    """r5b loads to the same tree, leaf for leaf, bit for bit, with the same
+    optimizer leaves; params_from_numpy keeps structure and values."""
     jp, jmeta = jckpt.load_checkpoint(R5B)
     tp, tmeta = load_checkpoint(R5B)
-    jmeta.pop("opt_leaves")
+    j_opt, t_opt = jmeta.pop("opt_leaves"), tmeta.pop("opt_leaves")
+    assert len(t_opt) == len(j_opt) == tmeta["n_opt_leaves"]
+    for a, b in zip(t_opt, j_opt):
+        np.testing.assert_array_equal(a, b)
     assert tmeta == jmeta
     assert tmeta["grid_dim"] == [131, 131, 121]
     jl, tl = dict(_leaves(jp)), dict(_leaves(tp))

@@ -242,12 +242,13 @@ def test_render_chunk_is_what_render_rays_passes_the_kernel(tmp_path,
 
 
 def test_unported_options_raise(tmp_path):
-    """The production path (head_topk "auto", empty-space skipping) is
-    ported; what the port still lacks raises NotImplementedError naming it:
-    the L1 cascade (l2_only=False), heavy/light bucketing (what calibration
-    picks with termination=False on this field), iter/rank head selection,
-    head dedup, span gathers, baked heads, the mesh, direct VM sampling and
-    training renders."""
+    """The production path (head_topk "auto", empty-space skipping), direct
+    VM sampling (use_fused=False, fused=None) and training renders (is_train
+    with rng) are ported and run; what the port still lacks raises
+    NotImplementedError naming it: the L1 budget of the calibration
+    (l2_only=False), heavy/light bucketing (what calibration picks with
+    termination=False on this field), iter/rank head selection, head dedup,
+    span gathers, baked heads, the mesh and the distilled-feature heads."""
     ckpt = _checkpoint(tmp_path / "field.npz", {})
     cfg = _cfg(TConfig)
     p, m, r, s, _ = trender.load_model_for_inference(ckpt, cfg, 2,
@@ -263,10 +264,11 @@ def test_unported_options_raise(tmp_path):
         trender.render_frames(p, m, light, s, frames, termination=False,
                               device="cpu")
     for kw, name in ((dict(mesh=object()), "mesh"),
-                     (dict(use_fused=False), "use_fused"),
                      (dict(bake_heads=True), "bake_heads")):
         with pytest.raises(NotImplementedError, match=name):
             trender.render_frames(p, m, r, s, frames, device="cpu", **kw)
+    assert trender.render_frames(p, m, r, s, frames, use_fused=False,
+                                 device="cpu")[0]["rgb"].shape == (64, 3)
     # every unported option is refused, on the dense and production paths;
     # the bf16 atlas and bf16 heads are ported and are not
     # (head_dedup_cells needs head_topk)
@@ -283,10 +285,18 @@ def test_unported_options_raise(tmp_path):
                                      device="cpu")[0]["rgb"].shape == (64, 3)
     rays = torch.from_numpy(_rays(8, 0))
     dense = _dense(r)
-    with pytest.raises(NotImplementedError, match="fused=None"):
-        tR.render_rays(p, m, dense, s, rays)
-    with pytest.raises(NotImplementedError, match="is_train"):
-        tR.render_rays(p, m, dense, s, rays, is_train=True)
+    assert tR.render_rays(p, m, dense, s, rays)["rgb"].shape == (8, 3)
+    train = tR.render_rays(p, m, dense, s, rays, torch.Generator(),
+                           is_train=True)
+    assert torch.isfinite(train["rgb"]).all()
+    distilled = dataclasses.replace(m, use_distilled_features_semantic=True)
+    with pytest.raises(NotImplementedError, match="distilled"):
+        tR.render_rays(p, distilled, dense, s, rays)
+    for fn in (tR.render_instance_features, tR.render_segment_features):
+        with pytest.raises(NotImplementedError, match="distilled"):
+            fn(p, distilled, dense, s, rays)
+        with pytest.raises(NotImplementedError, match="head_select"):
+            fn(p, m, dataclasses.replace(dense, head_select="rank"), s, rays)
     with pytest.raises(NotImplementedError, match="use_dbscan"):
         tcluster.cluster(np.zeros((200, 4), np.float32), 0.1, 1,
                          use_dbscan=True, device="cpu")
