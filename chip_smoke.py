@@ -79,7 +79,38 @@ Phases, each printing JSON lines with their seconds:
              samplers and generator, every metric finite, with the warm
              steps/s, rays/s and peak device memory beside the card's name
              and power limit;
-8. profile - only with ``--profile``: one more warm render of the 4 val
+8. stage_r5b - the stage changes of the JAX ``Trainer`` on ``final.npz``
+             with r5b's config (``train/stages.py``): the AABB shrink and the
+             upsamples to each count of r5b's voxel schedule, held against
+             the JAX golden ``contrastive_lift_tpu_torch/testdata/
+             r5b_stage_golden.npz``: grid_dim, t_l, b_r, the schedule and
+             the target resolutions equal, the AABB equal (one float32 step
+             is reported, more fails), the occupied count within 0.01%,
+             every upsampled plane and line's sketch within 1e-5 of its norm;
+9. train_loop_r5b - ``Trainer.fit`` from scratch on ``cuda`` with r5b's
+             configuration and widths, cut to 8 train frames of r5b's scene,
+             4 epochs (instance phase from 2, segment phase from 3), one
+             sanity frame and half the val frames: the shrinks at epochs 1
+             and 2 and the upscales to 741,455 and 2,097,152 voxels. Per
+             epoch: grid, AABB, head budget, the seconds of each stage
+             change, of the steps, validation, visualisation and the
+             checkpoint, warm steps/s and peak memory, beside the card's
+             name and power limit. Gates: every logged metric finite, each
+             upscale's voxel count at most its target and within 4% of it,
+             the last validation's psnr above the sanity one, ``last.npz``
+             read back with epoch 4 and the trainer's step and grid; a fresh
+             ``Trainer`` restores it bitwise (parameters and both Adam
+             chains) and one more step on fixed batches and draws from both
+             agrees within rtol 1e-5; then the fused form, in float32 and
+             bfloat16, against its plain version on ``loop_chunk``: the
+             first pass-A chunk of the production render of ``last.npz``
+             (its own grid and calibrated budgets,
+             ``inference/fidelity.py::production_chunk``), timed and bounded
+             as in the kernels phase; then ``run_production`` renders
+             ``last.npz`` (launch counts zeroed just before): the float32
+             density kernel must have run, its first chunk must be
+             ``loop_chunk``'s shape and every map be finite;
+10. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
@@ -90,7 +121,9 @@ Phases, each printing JSON lines with their seconds:
              at the step's shapes against their bounds.
 
 Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
-on the render-chunk inputs, the fused form also on the production chunk) and,
+on the render-chunk inputs, the fused form also on the production chunk and
+the loop chunk, with its launches in main_production and in train_loop_r5b's
+render) and,
 last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -107,9 +140,19 @@ ROOT = Path(__file__).resolve().parent
 GOLDEN = ROOT / "contrastive_lift_tpu_torch" / "testdata" / "r5b_dense_golden.npz"
 PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
 TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
+STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
 # warm steps of train_r5b after step 1, and the sampler seed of those
 TRAIN_STEPS = 10
 TRAIN_STEP_SEED = 1
+# train_loop_r5b: r5b's configuration and widths, cut to 8 train frames
+# (24 steps an epoch) and 4 epochs, with every phase open by the last
+LOOP_TRAIN_FRAMES = 8
+LOOP_OVERRIDES = {"max_epoch": 4, "instance_optimization_epoch": 2,
+                  "segment_optimization_epoch": 3, "sanity_steps": 1,
+                  "val_check_percent": 0.5}
+# the resumed step against the step before the save: cuDNN's grid_sample
+# backward adds with atomics, so the two need not be bitwise equal
+RESUME_RTOL = 1e-5
 TPU_KERNEL = "contrastive_lift_tpu/ops/pallas_interp.py:64"
 KERNEL_SOURCE = "contrastive_lift_tpu_torch/csrc/brick_interp.cu"
 
@@ -404,14 +447,15 @@ def fused_case(dense, xyz, shift, dtype):
     from contrastive_lift_tpu_torch.ops.fused_grid import build_brick_atlas
 
     n = xyz.shape[0]
+    grid = tuple(dense.shape)
     atlas = build_brick_atlas(dense, getattr(torch, dtype))
-    got = bi.sample_density_brick(atlas, xyz, GRID, shift)
-    ref = bi.sample_density_brick_reference(atlas, xyz, GRID, shift)
-    magnitude = bi.sample_density_brick_reference(atlas.abs(), xyz, GRID, 0.0)
+    got = bi.sample_density_brick(atlas, xyz, grid, shift)
+    ref = bi.sample_density_brick_reference(atlas, xyz, grid, shift)
+    magnitude = bi.sample_density_brick_reference(atlas.abs(), xyz, grid, 0.0)
     # the library reads the atlas's values, upcast outside the timed call
     library = dense_yardstick(dense.to(atlas.dtype).float(), xyz, shift)
     in_box = (xyz.abs() <= 1.0).all(dim=1)
-    row, frac = bi.brick_coords(GRID, xyz)
+    row, frac = bi.brick_coords(grid, xyz)
     rows_touched = int(torch.unique(row[weighted(frac)]).numel())
     elems, sectors = atlas_needs(row, frac, atlas.element_size())
     torch.cuda.synchronize()
@@ -426,12 +470,12 @@ def fused_case(dense, xyz, shift, dtype):
            "out_of_box_samples": int((~in_box).sum()),
            "atlas_rows": atlas.shape[0], "rows_touched": rows_touched,
            "elements_touched": elems, "sectors_touched": sectors,
-           **time_case(lambda: bi.sample_density_brick(atlas, xyz, GRID, shift),
+           **time_case(lambda: bi.sample_density_brick(atlas, xyz, grid, shift),
                        lambda: bi.sample_density_brick_reference(
-                           atlas, xyz, GRID, shift), library, xyz),
+                           atlas, xyz, grid, shift), library, xyz),
            "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms,
            "against": [time_other(src, "sample_density_brick", ref,
-                                  magnitude, atlas, xyz, GRID, shift)
+                                  magnitude, atlas, xyz, grid, shift)
                        for src in OTHER_SOURCES]}
     return rec
 
@@ -479,14 +523,41 @@ def literal_case(dense, xyz, dtype):
     return rec
 
 
-def phase_kernels():
-    """records[(kernel, inputs, dtype)] for every case; raises on a kernel
+def run_case(phase, kname, inputs, dtype, case, samples, empty_kernel_ms):
+    """Run one case, print it and return its record; raises on a kernel
     that disagrees with its plain version or a yardstick that computes
     another function."""
     import torch
+    t0 = time.perf_counter()
+    rec = case()
+    rec["bound_share"] = rec["bound_ms"] / rec["ms"]
+    rec["empty_kernel_ms"] = empty_kernel_ms
+    emit({"phase": phase, "kernel": kname, "inputs": inputs, "dtype": dtype,
+          "samples": samples, "tolerance": KERNEL_TOL, **rec,
+          "seconds": time.perf_counter() - t0})
+    torch.cuda.empty_cache()
+    measure = "max_abs_err" if inputs == "random" else "max_scaled_err"
+    if not rec[measure] <= KERNEL_TOL:
+        raise AssertionError(
+            f"{kname} {inputs} {dtype}: kernel vs plain {measure} "
+            f"{rec[measure]} > {KERNEL_TOL}")
+    if not rec.get("library_" + measure, 0.0) <= KERNEL_TOL:
+        raise AssertionError(
+            f"brick_interp {inputs} {dtype}: F.grid_sample "
+            "yardstick computes another function")
+    return rec
+
+
+def empty_kernel():
+    """What the timing loop gives an empty kernel."""
+    import torch
+    return timed(lambda: torch.cuda._sleep(0))[0]
+
+
+def phase_kernels():
+    """records[(kernel, inputs, dtype)] for every case (``run_case``)."""
     records = {}
-    # what the timing loop gives an empty kernel
-    empty_kernel_ms = timed(lambda: torch.cuda._sleep(0))[0]
+    empty_kernel_ms = empty_kernel()
     for inputs, (dense, xyz, shift) in kernel_inputs().items():
         for dtype in DTYPES:
             cases = [("sample_density_brick",
@@ -496,25 +567,9 @@ def phase_kernels():
                 cases.append(("brick_interp",
                               lambda: literal_case(dense, xyz, dtype)))
             for kname, case in cases:
-                t0 = time.perf_counter()
-                rec = case()
-                rec["bound_share"] = rec["bound_ms"] / rec["ms"]
-                rec["empty_kernel_ms"] = empty_kernel_ms
-                records[(kname, inputs, dtype)] = rec
-                emit({"phase": "kernels", "kernel": kname, "inputs": inputs,
-                      "dtype": dtype, "samples": xyz.shape[0],
-                      "tolerance": KERNEL_TOL, **rec,
-                      "seconds": time.perf_counter() - t0})
-                torch.cuda.empty_cache()
-                measure = "max_abs_err" if inputs == "random" else "max_scaled_err"
-                if not rec[measure] <= KERNEL_TOL:
-                    raise AssertionError(
-                        f"{kname} {inputs} {dtype}: kernel vs plain {measure} "
-                        f"{rec[measure]} > {KERNEL_TOL}")
-                if not rec.get("library_" + measure, 0.0) <= KERNEL_TOL:
-                    raise AssertionError(
-                        f"brick_interp {inputs} {dtype}: F.grid_sample "
-                        "yardstick computes another function")
+                records[(kname, inputs, dtype)] = run_case(
+                    "kernels", kname, inputs, dtype, case, xyz.shape[0],
+                    empty_kernel_ms)
     return records
 
 
@@ -1013,11 +1068,255 @@ def profile_train(one_step, state, setup, k: int, card: str, top: int = 15):
         raise AssertionError("the profiler recorded no device time")
 
 
+def phase_stage_r5b():
+    """The shrink and the upscales of r5b's schedule on its checkpoint,
+    held to the JAX golden (``train/stages.py``)."""
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.config import load_config
+    from contrastive_lift_tpu_torch.inference.fidelity import (R5B_CKPT,
+                                                               R5B_CONFIG)
+    from contrastive_lift_tpu_torch.train.stages import (INDEX_KEYS,
+                                                         check_stages,
+                                                         stage_changes)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t0 = time.perf_counter()
+    res = stage_changes(R5B_CKPT, load_config(R5B_CONFIG), device="cuda")
+    with np.load(STAGE_GOLDEN) as g:
+        bad, notes = check_stages(res, g)
+        gold = {k: np.asarray(g[k]).tolist() for k in
+                INDEX_KEYS + ("bbox_aabb", "occupied", "face_alphas")}
+        sketch_err = float(np.max(np.abs(res["sketches"] - g["sketches"])
+                                  / g["sketches"][..., :1]))
+    emit({"phase": "stage_r5b", "card": card_line(),
+          **{k: np.asarray(res[k]).tolist() for k in
+             INDEX_KEYS + ("bbox_aabb", "occupied", "face_alphas")},
+          "golden": gold, "max_sketch_err": sketch_err, "notes": notes,
+          "failures": bad, "part_seconds": res["seconds"],
+          "seconds": time.perf_counter() - t0})
+    for note in notes:
+        print(f"stage_r5b: {note}", flush=True)
+    if bad:
+        raise AssertionError(f"stage_r5b differs from the JAX golden: {bad}")
+
+
+def phase_train_loop_r5b():
+    """``Trainer.fit`` at r5b's widths from scratch through both stage
+    changes, then a resume and a production render of its checkpoint, with
+    the fused kernel held to its plain version on that render's first
+    pass-A chunk (``loop_chunk``). Returns (the density-kernel launches of
+    that render, records[(kernel, "loop_chunk", dtype)])."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.config import load_config
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        BUDGET_FIELDS, PRODUCTION_CHUNK, R5B_CONFIG, R5B_SCENE, e2e_scene,
+        production_chunk, run_production)
+    from contrastive_lift_tpu_torch.io.checkpoint import load_checkpoint
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+    from contrastive_lift_tpu_torch.train import resume
+    from contrastive_lift_tpu_torch.train.loop import Trainer
+    from contrastive_lift_tpu_torch.train.schedule import lr_scale_for_epoch
+    from contrastive_lift_tpu_torch.train.step import (draw_step,
+                                                       gates_for_epoch,
+                                                       make_train_step)
+    from contrastive_lift_tpu_torch.utils.tree import tree_leaves_with_path
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    image_dim, _, checker_freq = R5B_SCENE
+    scene = e2e_scene(image_dim, LOOP_TRAIN_FRAMES, checker_freq)
+    cfg = load_config(R5B_CONFIG, LOOP_OVERRIDES).resolve_epochs()
+    emit({"phase": "train_loop_r5b", "card": card,
+          "cuts": {"train_frames": LOOP_TRAIN_FRAMES, **LOOP_OVERRIDES},
+          "widths": {"density_comps": 16, "appearance_comps": 48,
+                     "instance_mlp": 256, "precision": cfg.precision,
+                     "batch_size": cfg.batch_size,
+                     "instance_rays": [cfg.batch_size_contrastive,
+                                       cfg.max_rays_instances],
+                     "segment_rays": [cfg.batch_size_segments,
+                                      cfg.max_rays_segments]}})
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+        torch.cuda.reset_peak_memory_stats()
+        t_start = time.perf_counter()
+        trainer = Trainer(cfg, scene, Path(tmp) / "run", log_every=1,
+                          device="cuda")
+        trainer.fit()
+        fit_seconds = time.perf_counter() - t_start
+        run = Path(tmp) / "run"
+        records = [json.loads(line) for line in
+                   (run / "metrics.jsonl").read_text().splitlines()]
+        sec = trainer.seconds
+        per_epoch = []
+        for epoch in range(cfg.max_epoch):
+            steps = [s for e, s in sec["step"] if e == epoch]
+            warm = steps[1:]
+            stage = [st for st in trainer.stages if st["epoch"] == epoch][-1]
+            val = [r for r in records if r.get("epoch") == epoch
+                   and "val/psnr" in r]
+            per_epoch.append({
+                **stage, "voxels": int(np.prod(stage["grid_dim"])),
+                **{k: sum(s for e, s in sec[k] if e == epoch)
+                   for k in ("shrink", "upscale", "calibrate", "rebuild",
+                             "validate", "visualize", "save")},
+                "steps": len(steps), "train_seconds": sum(steps),
+                "warm_steps_per_second": len(warm) / sum(warm),
+                "val": {k[4:]: v for k, v in val[-1].items()
+                        if k.startswith("val/")} if val else None})
+            emit({"phase": "train_loop_r5b", "card": card, **per_epoch[-1]})
+        sanity = [r for r in records if "sanity_val/psnr" in r][0]
+        last_val = [r for r in records if "val/psnr" in r][-1]
+        emit({"phase": "train_loop_r5b", "card": card, "fit": True,
+              "global_step": trainer.global_step,
+              "sanity_val": {k: v for k, v in sanity.items()
+                             if k.startswith("sanity_val/")},
+              "sanity_seconds": [s for e, s in sec["validate"] if e == -1],
+              "max_memory_allocated_bytes": trainer.stages[-1][
+                  "max_memory_allocated"],
+              "fit_seconds": fit_seconds})
+        bad = [r for r in records if not all(
+            np.isfinite(v) for v in r.values() if isinstance(v, float))]
+        if bad:
+            raise AssertionError(f"train_loop_r5b: non-finite metrics {bad[:3]}")
+        for i, epoch in enumerate(cfg.grid_upscale_epochs):
+            target = trainer.voxel_schedule[i]
+            voxels = per_epoch[epoch]["voxels"]
+            if not 0.96 * target <= voxels <= target:
+                raise AssertionError(f"train_loop_r5b: {voxels} voxels after "
+                                     f"the upscale to {target}")
+        if not last_val["val/psnr"] > sanity["sanity_val/psnr"]:
+            raise AssertionError(
+                f"train_loop_r5b: last validation psnr {last_val['val/psnr']}"
+                f" is not above the sanity one {sanity['sanity_val/psnr']}")
+        last = run / "checkpoints" / "last.npz"
+        _, meta = load_checkpoint(last)
+        got = (meta["epoch"], meta["global_step"], tuple(meta["grid_dim"]))
+        want = (cfg.max_epoch, trainer.global_step, tuple(trainer.grid_dim))
+        if got != want:
+            raise AssertionError(f"last.npz holds {got}, the trainer {want}")
+
+        # resume: one more step from the trainer's state and from a fresh
+        # trainer restored from last.npz, on the same batches and draws
+        epoch = cfg.max_epoch
+        gates = gates_for_epoch(cfg, epoch)
+        lr_scale = lr_scale_for_epoch(epoch, cfg.decay_step, cfg.decay_gamma,
+                                      cfg.warmup_epochs, cfg.warmup_multiplier)
+        lambda_dist = cfg.lambda_dist_reg * (1 - np.exp(-0.25 * epoch))
+        rng = np.random.default_rng(TRAIN_STEP_SEED)
+        bm = trainer.main_sampler.sample(rng, cfg.batch_size)
+        bi_ = trainer.inst_sampler.sample(rng, cfg.batch_size_contrastive)
+        bs = trainer.seg_sampler.sample(rng, cfg.batch_size_segments)
+        draws = draw_step(torch.Generator(device="cuda").manual_seed(1), cfg,
+                          cfg.batch_size, len(bs["rays"]),
+                          tuple(bi_["rays"].shape[:2]))
+        k = trainer._aux_k
+        fresh = Trainer(load_config(R5B_CONFIG, LOOP_OVERRIDES).resolve_epochs(),
+                        scene, Path(tmp) / "resumed", device="cuda")
+        fresh.restore(last)
+        mismatched = []
+        for name, a, b in (
+                ("params", trainer.state.params, fresh.state.params),
+                ("opt_main", trainer.state.opt_state_main,
+                 fresh.state.opt_state_main),
+                ("opt_inst", trainer.state.opt_state_inst,
+                 fresh.state.opt_state_inst)):
+            la, lb = tree_leaves_with_path(a), tree_leaves_with_path(b)
+            if [p for p, _ in la] != [p for p, _ in lb]:
+                mismatched.append(f"{name}: leaf paths differ")
+                continue
+            mismatched += [f"{name} {path}" for (path, x), (_, y)
+                           in zip(la, lb) if not torch.equal(x, y)]
+        metrics = []
+        for tr in (trainer, fresh):
+            step = make_train_step(tr.cfg, tr.mcfg, tr.rcfg, gates,
+                                   tr.class_weights, tr.state.params,
+                                   aux_head_topk=k)
+            _, m = step(tr.state, tr.state_r, bm, bi_, bs, draws, lr_scale,
+                        lambda_dist)
+            metrics.append({name: float(v) for name, v in m.items()})
+        rel = {name: abs(metrics[1][name] - v) / max(abs(v), 1e-12)
+               for name, v in metrics[0].items()}
+        emit({"phase": "train_loop_r5b", "resume": True,
+              "restored_epoch": fresh.start_epoch,
+              "restored_step": fresh.global_step,
+              "mismatched_leaves": mismatched[:10], "aux_k": k,
+              "metrics_a": metrics[0], "metrics_b": metrics[1],
+              "max_rel_diff": max(rel.values())})
+        if mismatched:
+            raise AssertionError(f"restore differs from the saved state: "
+                                 f"{mismatched[:10]}")
+        for name, r in rel.items():
+            if not (r <= RESUME_RTOL or abs(metrics[1][name]
+                                            - metrics[0][name]) <= 1e-9):
+                raise AssertionError(f"resumed step {name}: {metrics[1][name]}"
+                                     f" vs {metrics[0][name]}")
+
+        # the fused kernel against its plain version on the first pass-A
+        # chunk of the render below (its grid, budgets and samples), then
+        # the loop's checkpoint through the production render
+        dense, shift, xyz = production_chunk(last, scene, device="cuda")
+        xyz = xyz.contiguous()
+        empty_kernel_ms = empty_kernel()
+        loop_records = {
+            ("sample_density_brick", "loop_chunk", dtype): run_case(
+                "train_loop_r5b", "sample_density_brick", "loop_chunk", dtype,
+                lambda: fused_case(dense, xyz, shift, dtype), xyz.shape[0],
+                empty_kernel_ms)
+            for dtype in DTYPES}
+        got_chunk = (xyz.shape[0], tuple(dense.shape))
+        del dense, xyz
+        torch.cuda.empty_cache()
+        bi.reset_launches()
+        t0 = time.perf_counter()
+        res = run_production(last, scene, device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        n_rays = sum(len(f.rays) for f in scene.val_frames)
+        emit({"phase": "train_loop_r5b", "render": True, "card": card,
+              "launches": launches,
+              "budgets": {f: getattr(res["rcfg"], f) for f in BUDGET_FIELDS},
+              **{k: res[k] for k in ("pq_scene", "pq_masked", "sq", "rq",
+                                     "budget_tail", "head_tail", "warnings",
+                                     "n_samples", "grid_dim")},
+              "render_seconds": res["render_seconds"],
+              "rays_per_second": n_rays / res["render_seconds"],
+              "cluster_seconds": res["cluster_seconds"], "seconds": seconds})
+        print(f"train_loop_r5b: {trainer.global_step} steps in "
+              f"{fit_seconds:.1f} s, peak "
+              f"{trainer.stages[-1]['max_memory_allocated'] / 2**30:.2f} GiB, "
+              f"render {n_rays / res['render_seconds']:.0f} rays/s on {card}",
+              flush=True)
+        if launches["sample_density_brick"].get("float32", 0) < 1:
+            raise AssertionError("the loop checkpoint's production render "
+                                 "never launched the float32 "
+                                 "sample_density_brick kernel")
+        n_chunk = (PRODUCTION_CHUNK * res["rcfg"].term_first * 8,
+                   tuple(res["grid_dim"]))
+        if got_chunk != n_chunk:
+            raise AssertionError(f"loop_chunk has (samples, grid) {got_chunk}"
+                                 f", the render's first chunk {n_chunk}")
+        for frame in res["maps"]:
+            for key, value in frame.items():
+                if not np.isfinite(value).all():
+                    raise AssertionError(f"render of last.npz: {key} map is "
+                                         "not finite")
+    return launches, loop_records
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
     on the render-chunk inputs (the dense main path's own) and its launches
     in the dense render of that row type; the fused form also with its time
-    on the production chunk and its launches in ``main_production``."""
+    on the production chunk and its launches in ``main_production``, and
+    with its time and error on the loop chunk and its launches in
+    ``train_loop_r5b``'s render."""
     entries = []
     for kname in ("brick_interp", "sample_density_brick"):
         for dtype in DTYPES:
@@ -1040,7 +1339,16 @@ def kernel_line(records, launches):
                     production_chunk_bound_ms=prod["bound_ms"],
                     production_chunk_library_ms=prod["library_ms"],
                     main_production_launches=launches["production"][kname]
+                    .get(dtype, 0),
+                    train_loop_r5b_launches=launches["train_loop"][kname]
                     .get(dtype, 0))
+            loop = records.get((kname, "loop_chunk", dtype))
+            if loop is not None:
+                entry.update(loop_chunk_ms=loop["ms"],
+                             loop_chunk_plain_ms=loop["plain_ms"],
+                             loop_chunk_bound_ms=loop["bound_ms"],
+                             loop_chunk_library_ms=loop["library_ms"],
+                             loop_chunk_max_abs_err=loop["max_abs_err"])
             entries.append(entry)
     return {"kernels": entries}
 
@@ -1062,7 +1370,7 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False; this script "
               "needs a CUDA card", file=sys.stderr)
         return 2
-    for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN,
+    for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN, STAGE_GOLDEN,
                    ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
@@ -1078,6 +1386,9 @@ def main() -> int:
                 "production": phase_main_production(
                     dense_warm_rays_per_second)}
     phase_train_r5b(args.profile)
+    phase_stage_r5b()
+    launches["train_loop"], loop_records = phase_train_loop_r5b()
+    records.update(loop_records)
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

@@ -5,9 +5,10 @@ package's tree with torch tensors at the leaves
 (``io/convert.py::params_from_numpy``); linear layers keep the JAX layout
 ``x @ w + b`` with ``w`` as [in, out]. Grid-branch features come from the
 dense grids of ``ops/fused_grid.py`` (``feats=``) or, without them, from the
-VM factors sampled directly (``ops/grid_sample.py``). Not ported yet: the
-distilled-feature heads (``render_distilled``, ``semantic_backbone_feats``)
-and the grid lifecycle (``upsample_volume_grid``, ``shrink_volume_grid``).
+VM factors sampled directly (``ops/grid_sample.py``). The grid lifecycle
+(``upsample_volume_grid``, ``shrink_volume_grid``) resizes the factors
+between training stages. Not ported yet: the distilled-feature heads
+(``render_distilled``, ``semantic_backbone_feats``).
 """
 from __future__ import annotations
 
@@ -17,7 +18,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from ..ops.grid_sample import MATRIX_MODE, VECTOR_MODE, vm_density, vm_feature
+from ..ops.grid_sample import (MATRIX_MODE, VECTOR_MODE, upsample_line,
+                                upsample_plane, vm_density, vm_feature)
 from ..utils.tree import tree_map
 
 
@@ -310,3 +312,59 @@ def render_instances(params, cfg: TensoRFConfig, xyz, distilled=None,
         slow = mlp_apply(params["instance_mlp"]["slow"], mlp_in, compute_dtype)
         out = torch.cat([out, slow], dim=-1)
     return out
+
+
+# ---------------------------------------------------------------------------
+# Grid lifecycle (between training stages, shape-changing)
+# ---------------------------------------------------------------------------
+
+_GRID_BRANCHES = ("density", "appearance", "semantic", "instance", "feature")
+
+
+def _map_factors(params: dict, plane_fn, line_fn) -> dict:
+    """``params`` with every grid branch's plane i replaced by
+    ``plane_fn(plane, i)`` and line i by ``line_fn(line, i)``."""
+    out = dict(params)
+    for name in _GRID_BRANCHES:
+        if name in params:
+            g = params[name]
+            out[name] = {
+                "planes": tuple(plane_fn(p, i) for i, p in enumerate(g["planes"])),
+                "lines": tuple(line_fn(l, i) for i, l in enumerate(g["lines"]))}
+    return out
+
+
+def upsample_volume_grid(params: dict, res_target) -> dict:
+    """All factor grids resized to ``res_target`` (align-corners bilinear
+    planes, linear lines). Plane i becomes [C, res[m1], res[m0]]."""
+    res = tuple(int(r) for r in res_target)
+    with torch.no_grad():
+        return _map_factors(
+            params,
+            lambda p, i: upsample_plane(p, (res[MATRIX_MODE[i][1]],
+                                            res[MATRIX_MODE[i][0]])),
+            lambda l, i: upsample_line(l, res[VECTOR_MODE[i]]))
+
+
+def shrink_volume_grid(params: dict, t_l, b_r) -> dict:
+    """All factor grids cropped to the voxel range [t_l, b_r) per axis."""
+    t_l = [int(x) for x in t_l]
+    b_r = [int(x) for x in b_r]
+
+    def plane(p, i):
+        m0, m1 = MATRIX_MODE[i]
+        return p[:, t_l[m1]:b_r[m1], t_l[m0]:b_r[m0]].contiguous()
+
+    def line(l, i):
+        v = VECTOR_MODE[i]
+        return l[:, t_l[v]:b_r[v]].contiguous()
+
+    return _map_factors(params, plane, line)
+
+
+def grid_dim_of(params: dict) -> Tuple[int, int, int]:
+    """(gx, gy, gz) from the density factors: plane 0 is [C, g1, g0], line 0
+    is [C, g2]."""
+    planes = params["density"]["planes"]
+    return (int(planes[0].shape[2]), int(planes[0].shape[1]),
+            int(params["density"]["lines"][0].shape[1]))

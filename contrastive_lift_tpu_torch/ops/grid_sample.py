@@ -15,6 +15,10 @@ Conventions:
 The VM split: plane i of a branch has shape [C, grid[m1], grid[m0]] and is
 sampled at (x=xyz[m0], y=xyz[m1]); line i has shape [C, grid[v]] sampled at
 xyz[v], with (m0, m1) = MATRIX_MODE[i] and v = VECTOR_MODE[i].
+
+``upsample_plane`` and ``upsample_line`` resize factors between training
+stages by sampling them on the target's align-corners lattice, as the JAX
+package does (``lattice``).
 """
 from __future__ import annotations
 
@@ -65,3 +69,45 @@ def vm_feature(planes, lines, xyz: torch.Tensor) -> torch.Tensor:
     caller applies the bias-free basis matmul)."""
     return torch.cat([_axis_product(planes, lines, xyz, i) for i in range(3)],
                      dim=-1)
+
+
+def lattice(start: float, stop: float, n: int, device=None) -> torch.Tensor:
+    """``n`` float32 points from ``start`` to ``stop`` as XLA computes
+    ``jnp.linspace`` inside a jitted function: step ``i * f32(1 / (n - 1))``,
+    then ``start * (1 - step) + stop * step``, the last point ``stop``
+    (``torch.linspace`` differs from it in the last bit at about half the
+    points; the JAX package's eager ``jnp.linspace(-1, 1, n)`` by up to one
+    float32 step). One point is ``start``."""
+    if n == 1:
+        return torch.full((1,), start, dtype=torch.float32, device=device)
+    f32 = dict(dtype=torch.float32, device=device)
+    inv = torch.tensor(1.0, **f32) / torch.tensor(float(n - 1), **f32)
+    step = torch.arange(n - 1, **f32) * inv
+    out = (torch.tensor(start, **f32) * (1.0 - step)
+           + torch.tensor(stop, **f32) * step)
+    return torch.cat([out, torch.full((1,), stop, dtype=torch.float32,
+                                      device=device)])
+
+
+def upsample_plane(plane: torch.Tensor, new_hw) -> torch.Tensor:
+    """Bilinear (align_corners=True) resize of a [C, H, W] plane to
+    [C, new_h, new_w]: the plane sampled on the target's lattice in
+    [-1, 1] (a size of 1 samples the centre)."""
+    C = plane.shape[0]
+    nh, nw = int(new_hw[0]), int(new_hw[1])
+    ys = lattice(-1.0, 1.0, nh, plane.device) if nh > 1 else \
+        torch.zeros(1, device=plane.device)
+    xs = lattice(-1.0, 1.0, nw, plane.device) if nw > 1 else \
+        torch.zeros(1, device=plane.device)
+    gy, gx = torch.meshgrid(ys, xs, indexing="ij")          # [nh, nw]
+    out = plane_sample(plane, torch.stack([gx.reshape(-1), gy.reshape(-1)],
+                                          dim=-1))          # [nh*nw, C]
+    return out.t().reshape(C, nh, nw).contiguous()
+
+
+def upsample_line(line: torch.Tensor, new_l: int) -> torch.Tensor:
+    """Linear (align_corners=True) resize of a [C, L] line to [C, new_l]."""
+    nl = int(new_l)
+    zs = lattice(-1.0, 1.0, nl, line.device) if nl > 1 else \
+        torch.zeros(1, device=line.device)
+    return line_sample(line, zs).t().contiguous()

@@ -1,15 +1,16 @@
 """Resume training from a checkpoint: the state the JAX ``Trainer`` restores.
 
-``restore_training`` rebuilds, from a checkpoint with optimizer state, what
-``contrastive_lift_tpu/train/loop.py::Trainer.restore`` and the start of
-``Trainer.train_epoch`` set up for the next epoch: the model at the stored
-grid, both Adam chains with their stored moments, the render config and
-state, the class weights, the epoch's gates, lr scale and distortion weight,
-and the three samplers of the scene. ``step_batches`` draws a step's
-batches as the ``Trainer`` does, and ``leaf_sketches`` condenses a tensor into
-its norm and 16 random projections, which is how a training golden stores
-gradients and parameters (seeded by the leaf's index, so any machine with
-numpy draws the same probes). ``golden_step`` takes the first step of such a
+``restore_state`` rebuilds, from a checkpoint with optimizer state, what
+``Trainer.restore`` (``train/loop.py``, as the JAX package's) installs, and
+``restore_training`` adds what the start of ``Trainer.train_epoch`` sets up
+for the next epoch: the model at the stored grid, both Adam chains with
+their stored moments, the render config and state, the class weights, the
+epoch's gates, lr scale and distortion weight, and the three samplers of
+the scene. ``step_batches`` draws a step's batches as the ``Trainer``
+does, and ``leaf_sketches`` condenses a tensor into its norm and 16 random
+projections, which is how a training golden stores gradients and
+parameters (seeded by the leaf's index, so any machine with numpy draws
+the same probes). ``golden_step`` takes the first step of such a
 golden with the port and ``check_train_step`` holds it to the golden.
 """
 from __future__ import annotations
@@ -63,21 +64,31 @@ class TrainSetup(NamedTuple):
     samplers: tuple   # (RayPoolSampler, InstanceBundleSampler, SegmentBundleSampler)
 
 
-def restore_training(ckpt_path, cfg, scene: SceneData,
-                     device="cuda") -> TrainSetup:
-    """The training state of ``ckpt_path`` for ``scene`` on ``device``,
-    at the stored grid, epoch and step, with the stored optimizer state
-    (a checkpoint without it starts both chains from zero moments)."""
+class RestoredState(NamedTuple):
+    grid_dim: tuple
+    rcfg: R.RenderConfig
+    state_r: R.RenderState
+    state: TrainState
+    epoch: int
+    global_step: int
+    has_opt_state: bool
+
+
+def restore_state(ckpt_path, cfg, mcfg, white_bg: bool,
+                  device) -> RestoredState:
+    """The model and optimizer state of ``ckpt_path`` on ``device`` at the
+    stored grid, epoch and step, as the JAX ``Trainer.restore`` rebuilds
+    them: weight decay zeroed on ``cfg`` once an upscale epoch has passed,
+    both Adam chains with their stored moments (zero moments when the
+    checkpoint has no optimizer state)."""
     dev = resolve_device(device)
     params, meta = load_checkpoint(ckpt_path)
     grid_dim = tuple(meta["grid_dim"])
     bbox = np.asarray(meta["bbox_aabb"], np.float32)
     epoch, step = int(meta["epoch"]), int(meta["global_step"])
+    rcfg = make_render_config(cfg, bbox, grid_dim, mcfg, white_bg=white_bg)
     if any(e < epoch for e in cfg.grid_upscale_epochs):
         cfg.weight_decay = 0.0  # zeroed when the upscale ran
-    mcfg = make_model_config(cfg, scene.num_semantic_classes)
-    rcfg = make_render_config(cfg, bbox, grid_dim, mcfg,
-                              white_bg=scene.white_bg)
     state_r = R.make_render_state(bbox, grid_dim, device=dev)
     params = params_from_numpy(params, dev)
     main_tx, inst_tx, _ = make_optimizers(cfg, params)
@@ -88,6 +99,19 @@ def restore_training(ckpt_path, cfg, scene: SceneData,
         opt_main, opt_inst = main_tx.init(params), inst_tx.init(params)
     state = TrainState(params, opt_main, opt_inst,
                        torch.tensor(step, dtype=torch.int32, device=dev))
+    return RestoredState(grid_dim, rcfg, state_r, state, epoch, step,
+                         "opt_leaves" in meta)
+
+
+def restore_training(ckpt_path, cfg, scene: SceneData,
+                     device="cuda") -> TrainSetup:
+    """The training state of ``ckpt_path`` for ``scene`` on ``device``,
+    at the stored grid, epoch and step, with the stored optimizer state
+    (a checkpoint without it starts both chains from zero moments)."""
+    dev = resolve_device(device)
+    mcfg = make_model_config(cfg, scene.num_semantic_classes)
+    st = restore_state(ckpt_path, cfg, mcfg, scene.white_bg, dev)
+    epoch = st.epoch
     frames = scene.train_frames
     samplers = (
         RayPoolSampler(frames, scene.num_semantic_classes,
@@ -97,9 +121,9 @@ def restore_training(ckpt_path, cfg, scene: SceneData,
         SegmentBundleSampler(frames, cfg.max_rays_segments)
         if cfg.segment_grouping_mode != "none" else None)
     return TrainSetup(
-        cfg, mcfg, rcfg, state_r, state,
-        class_weights_for(cfg, scene.segmentation, device=dev), epoch, step,
-        gates_for_epoch(cfg, epoch),
+        cfg, mcfg, st.rcfg, st.state_r, st.state,
+        class_weights_for(cfg, scene.segmentation, device=dev), epoch,
+        st.global_step, gates_for_epoch(cfg, epoch),
         lr_scale_for_epoch(epoch, cfg.decay_step, cfg.decay_gamma,
                            cfg.warmup_epochs, cfg.warmup_multiplier),
         cfg.lambda_dist_reg * (1 - np.exp(-0.25 * epoch)), samplers)

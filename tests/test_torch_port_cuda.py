@@ -433,3 +433,96 @@ def test_direct_sampling_render_on_card_matches_cpu(cuda_device):
     for key in ("rgb", "semantics", "instances", "depth"):
         torch.testing.assert_close(got[key].cpu(), want[key], rtol=1e-4,
                                    atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_shrink_and_upsample_on_card_match_cpu(cuda_device):
+    """update_bbox_and_shrink of the slab field on the card: grid_dim, AABB
+    and the cropped params equal the CPU's; upsample_volume_grid of the
+    crop within 1e-6 of the CPU's."""
+    from contrastive_lift_tpu_torch.models import tensorf as tf
+    from contrastive_lift_tpu_torch.renderer import occupancy as occ
+    from contrastive_lift_tpu_torch.renderer import render as R
+    from contrastive_lift_tpu_torch.utils.tree import tree_leaves_with_path
+
+    _, mcfg, _, state_r, params, _, _, _ = _train_world("cpu")
+    out = {}
+    for dev in ("cpu", cuda_device):
+        sr = R.RenderState(*(t.to(dev) for t in state_r))
+        p, s, g = occ.update_bbox_and_shrink(_to(params, dev), mcfg, sr,
+                                             (24, 24, 24))
+        up = tf.upsample_volume_grid(p, occ.get_target_resolution(s, 30_000))
+        out[str(dev)] = (p, s, g, up)
+    (p0, s0, g0, u0), (p1, s1, g1, u1) = out["cpu"], out[str(cuda_device)]
+    assert g1 == g0 != (24, 24, 24)
+    torch.testing.assert_close(s1.bbox_aabb.cpu(), s0.bbox_aabb, rtol=0,
+                               atol=0)
+    for (path, a), (_, b) in zip(tree_leaves_with_path(p1),
+                                 tree_leaves_with_path(p0)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=0,
+                                   msg=lambda m: f"{path}: {m}")
+    for (path, a), (_, b) in zip(tree_leaves_with_path(u1),
+                                 tree_leaves_with_path(u0)):
+        torch.testing.assert_close(a.cpu(), b, rtol=0, atol=1e-6,
+                                   msg=lambda m: f"{path}: {m}")
+
+
+@pytest.mark.cuda
+def test_trainer_fit_on_card_matches_cpu(cuda_device, tmp_path):
+    """Trainer.fit for two epochs at grid 24 on the card and on the CPU from
+    the slab field with the same draws at every step (TF32 off): the shrink,
+    the upscale and the instance and segment phases at epoch 1; every step's
+    metrics within rtol 2e-3, each stage's grid_dim, AABB and head budget
+    equal, the validation psnr within the mse's rtol 2e-3."""
+    import json
+
+    from contrastive_lift_tpu_torch.config import Config
+    from contrastive_lift_tpu_torch.data.synthetic import make_synthetic_scene
+    from contrastive_lift_tpu_torch.train.loop import Trainer
+    from contrastive_lift_tpu_torch.train.step import draw_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    base, _, _, _, params, _, _, _ = _train_world("cpu")
+    scene = make_synthetic_scene(num_spheres=4, num_train=2, num_val=1,
+                                 image_dim=(16, 24), seed=0)
+    runs = {}
+    for dev in ("cpu", cuda_device):
+        cfg = Config(**{**base.to_dict(), "max_epoch": 2, "chunk": 384,
+                        "bbox_aabb_reset_epochs": [1],
+                        "grid_upscale_epochs": [1], "max_grid_dim": 24,
+                        "instance_optimization_epoch": 1,
+                        "segment_optimization_epoch": 1, "sanity_steps": 1})
+
+        def draws(step, cfg=cfg):
+            return draw_step(torch.Generator().manual_seed(step), cfg,
+                             cfg.batch_size,
+                             cfg.batch_size_segments * cfg.max_rays_segments,
+                             (cfg.batch_size_contrastive,
+                              cfg.max_rays_instances))
+
+        run = tmp_path / str(dev).replace(":", "")
+        tr = Trainer(cfg, scene, run, log_every=1, device=dev, params=params,
+                     draws=draws)
+        tr.fit()
+        records = [json.loads(line) for line in
+                   (run / "metrics.jsonl").read_text().splitlines()]
+        runs[str(dev)] = (tr.stages, records)
+    (st0, rec0), (st1, rec1) = runs["cpu"], runs[str(cuda_device)]
+    assert len(st1) == len(st0) == 3 and st0[2]["grid_dim"] != (24, 24, 24)
+    for s1, s0 in zip(st1, st0):
+        for key in ("epoch", "grid_dim", "bbox_aabb", "aux_k", "n_samples"):
+            assert s1[key] == s0[key], key
+    assert all(s["max_memory_allocated"] > 0 for s in st1[1:])
+    steps0 = [r for r in rec0 if "lr_scale" in r]
+    steps1 = [r for r in rec1 if "lr_scale" in r]
+    assert len(steps1) == len(steps0) == 6
+    for r1, r0 in zip(steps1, steps0):
+        assert set(r1) == set(r0)
+        for k, v in r0.items():
+            assert abs(r1[k] - v) <= 2e-3 * abs(v) + 1e-6, (r0["step"], k)
+    vals0 = [r["val/psnr"] for r in rec0 if "val/psnr" in r]
+    vals1 = [r["val/psnr"] for r in rec1 if "val/psnr" in r]
+    assert len(vals1) == len(vals0) == 2
+    for v1, v0 in zip(vals1, vals0):
+        assert abs(v1 - v0) <= 10 * np.log10(1 + 2e-3)

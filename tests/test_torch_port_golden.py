@@ -29,6 +29,17 @@ the draws, the budget, every loss and guardrail metric, and per parameter
 leaf the sketches (``train/resume.py::leaf_sketch``) of its main-phase and
 instance-phase gradients, of its value after the step and of its change;
 add the argument ``train``.
+
+``write_stage_golden()`` runs on ``final.npz`` what the JAX ``Trainer``
+runs at a shrink epoch and then at r5b's last upscale epoch, as the Trainer
+runs it (``dense_alpha`` jitted, the rest eagerly): the dilated occupancy of
+``update_bbox_and_shrink`` (its occupied count, and the dilated alpha on
+and just outside each face of the occupied box), the new grid_dim, t_l,
+b_r and AABB, the voxel schedule of r5b's config, and for each of its
+counts the target resolution of the shrunk AABB and the sketches of every
+plane and line after ``upsample_volume_grid`` to it. It writes
+``contrastive_lift_tpu_torch/testdata/r5b_stage_golden.npz``; add the
+argument ``stage``.
 """
 import subprocess
 import sys
@@ -47,6 +58,7 @@ from contrastive_lift_tpu_torch.inference.fidelity import (  # noqa: E402
 GOLDEN = ROOT / "contrastive_lift_tpu_torch" / "testdata" / "r5b_dense_golden.npz"
 PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
 TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
+STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
 RAY_STRIDE = 12
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 # a golden ray counts as moved by jit where a map differs by more than this
@@ -54,6 +66,7 @@ JIT_ATOL = 1e-4
 COMMAND = "JAX_PLATFORMS=cpu python tests/test_torch_port_golden.py"
 PRODUCTION_COMMAND = COMMAND + " production"
 TRAIN_COMMAND = COMMAND + " train"
+STAGE_COMMAND = COMMAND + " stage"
 # the training golden's sampler seed
 TRAIN_SEED = 0
 
@@ -335,6 +348,74 @@ def write_train_step_golden(path=TRAIN_GOLDEN) -> dict:
     return out
 
 
+def write_stage_golden(path=STAGE_GOLDEN) -> dict:
+    """The shrink and the upscales of r5b's schedule with the JAX package;
+    save the golden (see the module docstring)."""
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    import jax.numpy as jnp
+
+    from contrastive_lift_tpu.config import load_config
+    from contrastive_lift_tpu.factory import make_model_config
+    from contrastive_lift_tpu.io.checkpoint import load_checkpoint
+    from contrastive_lift_tpu.models import tensorf as tf
+    from contrastive_lift_tpu.ops.grid_sample import VECTOR_MODE
+    from contrastive_lift_tpu.renderer import occupancy as occ
+    from contrastive_lift_tpu.renderer import render as R
+    from contrastive_lift_tpu_torch.inference.fidelity import R5B_CONFIG
+    from contrastive_lift_tpu_torch.train.resume import leaf_sketches
+    from contrastive_lift_tpu_torch.train.stages import (face_alphas,
+                                                         grid_leaves)
+
+    cfg = load_config(R5B_CONFIG)
+    params, meta = load_checkpoint(R5B_CKPT)
+    params = jax.tree.map(jnp.asarray, params)
+    mcfg = make_model_config(
+        cfg, params["semantic_mlp"]["layers"][-1]["b"].shape[0])
+    grid_dim = tuple(meta["grid_dim"])
+    state_r = R.make_render_state(np.asarray(meta["bbox_aabb"], np.float32),
+                                  grid_dim)
+    alpha, _ = occ.dense_alpha(params, mcfg, state_r, grid_dim)
+    dilated = np.asarray(occ._max_pool3d(jnp.clip(alpha, 0.0, 1.0)))
+    occupied = dilated >= 0.0075
+    new_params, new_state, new_grid = occ.update_bbox_and_shrink(
+        params, mcfg, state_r, grid_dim)
+    # the crop, read back from the density lines (line i runs along axis
+    # VECTOR_MODE[i])
+    t_l, b_r = [0] * 3, [0] * 3
+    for i, v in enumerate(VECTOR_MODE):
+        old = np.asarray(params["density"]["lines"][i])
+        new = np.asarray(new_params["density"]["lines"][i])
+        n = new.shape[1]
+        hits = [s for s in range(old.shape[1] - n + 1)
+                if np.array_equal(old[:, s:s + n], new)]
+        assert len(hits) == 1, (i, hits)
+        t_l[v], b_r[v] = hits[0], hits[0] + n
+    schedule = occ.grid_upscale_voxel_counts(
+        cfg.min_grid_dim, cfg.max_grid_dim, len(cfg.grid_upscale_epochs))
+    targets = [occ.get_target_resolution(new_state, c) for c in schedule]
+    sketches = []
+    for target in targets:
+        leaves = grid_leaves(tf.upsample_volume_grid(new_params, target))
+        sketches.append([leaf_sketches(i, np.asarray(t))[0]
+                         for i, (_, t) in enumerate(leaves)])
+    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                            capture_output=True, text=True).stdout.strip()
+    out = dict(
+        occupied=int(occupied.sum()),
+        face_alphas=face_alphas(dilated, occupied),
+        grid_dim=np.asarray(new_grid), t_l=np.asarray(t_l),
+        b_r=np.asarray(b_r), bbox_aabb=np.asarray(new_state.bbox_aabb),
+        voxel_schedule=np.asarray(schedule), target_res=np.asarray(targets),
+        leaf_paths=np.asarray([p for p, _ in leaves]),
+        sketches=np.asarray(sketches),
+        source_grid_dim=np.asarray(grid_dim), commit=commit,
+        command=STAGE_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
 def test_golden_file_layout():
     """The committed golden holds the maps at every 12th ray of the 4 val
     frames, finite, with the scores and its provenance."""
@@ -481,6 +562,55 @@ def test_port_on_cpu_matches_train_step_golden():
     assert check_train_step(res, gold) == []
 
 
+def test_stage_golden_layout():
+    """The committed stage golden: r5b's grid shrinks inside the checkpoint
+    grid, its schedule is r5b's, the upsampled leaves are every plane and
+    line of the checkpoint, the face alphas bracket the threshold; under
+    200 KB."""
+    from contrastive_lift_tpu_torch.io.checkpoint import load_checkpoint
+    from contrastive_lift_tpu_torch.train.resume import N_PROBES
+    from contrastive_lift_tpu_torch.train.stages import grid_leaves
+    assert STAGE_GOLDEN.stat().st_size < 200_000
+    params, meta = load_checkpoint(R5B_CKPT)
+    with np.load(STAGE_GOLDEN) as g:
+        np.testing.assert_array_equal(g["source_grid_dim"], meta["grid_dim"])
+        assert (g["b_r"] - g["t_l"] == g["grid_dim"]).all()
+        assert (g["t_l"] >= 0).all() and (g["b_r"] <= g["source_grid_dim"]).all()
+        box = g["bbox_aabb"]
+        old = np.asarray(meta["bbox_aabb"], np.float32)
+        assert box.dtype == np.float32 and box.shape == (2, 3)
+        assert (box[0] >= old[0]).all() and (box[1] <= old[1]).all()
+        assert list(g["voxel_schedule"]) == [741455, 2097152]
+        for count, res in zip(g["voxel_schedule"], g["target_res"]):
+            assert 0.96 * count <= np.prod(res) <= count
+        assert 0 < int(g["occupied"]) <= np.prod(meta["grid_dim"])
+        assert list(g["leaf_paths"]) == [p for p, _ in grid_leaves(params)]
+        assert g["sketches"].shape == (2, len(g["leaf_paths"]), 1 + N_PROBES)
+        assert np.isfinite(g["sketches"]).all()
+        inside = g["face_alphas"][:, 0]
+        outside = g["face_alphas"][:, 1]
+        assert (inside >= 0.0075).all()
+        assert (np.isnan(outside) | (outside < 0.0075)).all()
+        assert len(str(g["commit"])) == 40
+        assert str(g["command"]) == STAGE_COMMAND
+
+
+def test_port_on_cpu_matches_stage_golden():
+    """The port's shrink and upscale of r5b on the CPU
+    (train/stages.py::stage_changes) within the golden's bars."""
+    from contrastive_lift_tpu_torch.config import load_config
+    from contrastive_lift_tpu_torch.inference.fidelity import R5B_CONFIG
+    from contrastive_lift_tpu_torch.train.stages import (check_stages,
+                                                         stage_changes)
+    res = stage_changes(R5B_CKPT, load_config(R5B_CONFIG), device="cpu")
+    with np.load(STAGE_GOLDEN) as g:
+        bad, notes = check_stages(res, g)
+        np.testing.assert_array_equal(res["bbox_aabb"], g["bbox_aabb"])
+        np.testing.assert_array_equal(res["face_alphas"] >= 0.0075,
+                                      g["face_alphas"] >= 0.0075)
+    assert bad == [] and notes == []
+
+
 @pytest.mark.slow
 def test_golden_regenerates(tmp_path):
     """write_golden() reproduces the committed file: maps within 1e-4 (CPU
@@ -514,7 +644,10 @@ def test_production_golden_regenerates(tmp_path):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["train"]:
+    if sys.argv[1:] == ["stage"]:
+        rec = write_stage_golden()
+        print({k: v for k, v in rec.items() if k != "sketches"})
+    elif sys.argv[1:] == ["train"]:
         rec = write_train_step_golden()
         print({k: v for k, v in rec.items() if not k.startswith(("sketch_",
                                                                  "draw_"))})
