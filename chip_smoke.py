@@ -110,7 +110,31 @@ Phases, each printing JSON lines with their seconds:
              ``last.npz`` (launch counts zeroed just before): the float32
              density kernel must have run, its first chunk must be
              ``loop_chunk``'s shape and every map be finite;
-10. profile - only with ``--profile``: one more warm render of the 4 val
+10. cli_r5b - the render and evaluate CLIs as a user runs them
+             (``inference/fidelity.py::run_cli``): r5b's synthetic scene
+             written in the MOS layout (``write_mos_scene``: PNG colour, npy
+             labels, metadata.json cameras; the reader renormalises the
+             poses, so these views are not the PQ gate's) and a run
+             directory with r5b's config naming it and a link to
+             ``final.npz`` (``cli_run_dir``); ``cli.render.main`` at 64x96,
+             4,096-ray chunks, every 4th of the 14 test frames (4 frames,
+             24,576 rays), once with mean-shift and once with
+             ``--use_dbscan``, each followed by ``cli.evaluate.main``;
+             launch counts zeroed just before and read just after. Held to
+             the eager JAX golden ``contrastive_lift_tpu_torch/testdata/
+             r5b_cli_golden.npz`` (``fidelity.check_cli``): calibrated
+             budgets equal, pred_semantics equal on at least 99.9% of the
+             pixels, instance_features.npy within 3e-2 (bf16 heads),
+             pred_surrogateid 16-bit, iou/pq/sq/rq within 0.005 for both
+             clusterings; the port's HDBSCAN on the card gives the golden's
+             scikit-learn labels on its sample up to a permutation; the
+             float32 density kernel launched; then the fused form in
+             float32 and bfloat16 against its plain version on
+             ``cli_chunk``, the first pass-A chunk of the CLI's render
+             (``fidelity.cli_chunk``), timed and bounded as in the kernels
+             phase. Prints render and cluster seconds and rays/s of each
+             clustering beside the card's name and power limit;
+11. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
@@ -121,9 +145,9 @@ Phases, each printing JSON lines with their seconds:
              at the step's shapes against their bounds.
 
 Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
-on the render-chunk inputs, the fused form also on the production chunk and
-the loop chunk, with its launches in main_production and in train_loop_r5b's
-render) and,
+on the render-chunk inputs, the fused form also on the production chunk,
+the loop chunk and the CLI chunk, with its launches in main_production, in
+train_loop_r5b's render and in cli_r5b) and,
 last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -141,6 +165,7 @@ GOLDEN = ROOT / "contrastive_lift_tpu_torch" / "testdata" / "r5b_dense_golden.np
 PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
 TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
 STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
+CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
 # warm steps of train_r5b after step 1, and the sampler seed of those
 TRAIN_STEPS = 10
 TRAIN_STEP_SEED = 1
@@ -1310,13 +1335,102 @@ def phase_train_loop_r5b():
     return launches, loop_records
 
 
+def phase_cli_r5b():
+    """The render and evaluate CLIs on r5b laid out as files, held to the
+    CLI golden, then the fused kernel against its plain version on the CLI
+    render's first pass-A chunk (``cli_chunk``). Returns (the density-kernel
+    launches of the two CLI renders, records[(kernel, "cli_chunk",
+    dtype)])."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        PRODUCTION_CHUNK, R5B_SCENE, check_cli, cli_chunk, cli_run_dir,
+        e2e_scene, labels_match, run_cli, write_mos_scene)
+    from contrastive_lift_tpu_torch.inference.hdbscan import hdbscan_labels
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+        tmp = Path(tmp)
+        t0 = time.perf_counter()
+        scene_root = write_mos_scene(e2e_scene(*R5B_SCENE), tmp / "scene")
+        ckpt = cli_run_dir(tmp / "run", scene_root)
+        write_seconds = time.perf_counter() - t0
+        bi.reset_launches()
+        t0 = time.perf_counter()
+        res = run_cli(ckpt, scene_root, tmp / "out", device="cuda")
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        with np.load(CLI_GOLDEN) as g:
+            bad, measured = check_cli(res, g)
+            gold = {k: g[k].item() for k in g.files
+                    if k.startswith(("meanshift_", "dbscan_"))}
+            t0 = time.perf_counter()
+            labels = hdbscan_labels(g["hdbscan_sample"],
+                                    int(g["hdbscan_min_cluster_size"]),
+                                    device="cuda")
+            hdbscan_seconds = time.perf_counter() - t0
+            if not labels_match(labels, g["hdbscan_labels"]):
+                bad.append("HDBSCAN on the card differs from scikit-learn's "
+                           "labels of the golden's sample")
+            n_chunk = PRODUCTION_CHUNK * int(g["budget_term_first"]) * 8
+            hdbscan = {"points": len(labels),
+                       "clusters": int(labels.max()) + 1,
+                       "noise": int((labels == -1).sum()),
+                       "seconds": hdbscan_seconds}
+        for name, run in res.items():
+            emit({"phase": "cli_r5b", "clustering": name, "card": card,
+                  **run["summary"], "scores": run["scores"],
+                  "golden_scores": {k[len(name) + 1:]: v for k, v in
+                                    gold.items() if k.startswith(name)},
+                  "budgets": run["budgets"], **measured[name]})
+        emit({"phase": "cli_r5b", "card": card, "launches": launches,
+              "hdbscan_golden_sample": hdbscan, "failures": bad,
+              "write_seconds": write_seconds, "seconds": seconds})
+        print("cli_r5b: " + ", ".join(
+            f"{name} render {run['summary']['render_seconds']:.2f} s "
+            f"({run['summary']['rays_per_second']:.0f} rays/s), cluster "
+            f"{run['summary']['cluster_seconds']:.2f} s"
+            for name, run in res.items()) + f" on {card}", flush=True)
+        if bad:
+            raise AssertionError(f"cli_r5b differs from the JAX golden: {bad}")
+        if launches["sample_density_brick"].get("float32", 0) < 1:
+            raise AssertionError("the render CLI never launched the float32 "
+                                 "sample_density_brick kernel")
+
+        # the fused kernel against its plain version on the first pass-A
+        # chunk of the CLI's render (its scene, model and budgets)
+        dense, shift, xyz = cli_chunk(ckpt, device="cuda")
+        xyz = xyz.contiguous()
+        if xyz.shape[0] != n_chunk:
+            raise AssertionError(f"cli_chunk has {xyz.shape[0]} samples, the "
+                                 f"CLI render's first chunk {n_chunk}")
+        empty_kernel_ms = empty_kernel()
+        records = {
+            ("sample_density_brick", "cli_chunk", dtype): run_case(
+                "cli_r5b", "sample_density_brick", "cli_chunk", dtype,
+                lambda: fused_case(dense, xyz, shift, dtype), xyz.shape[0],
+                empty_kernel_ms)
+            for dtype in DTYPES}
+        del dense, xyz
+        torch.cuda.empty_cache()
+    return launches, records
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
     on the render-chunk inputs (the dense main path's own) and its launches
     in the dense render of that row type; the fused form also with its time
     on the production chunk and its launches in ``main_production``, and
     with its time and error on the loop chunk and its launches in
-    ``train_loop_r5b``'s render."""
+    ``train_loop_r5b``'s render, and on the CLI chunk with its launches in
+    ``cli_r5b``."""
     entries = []
     for kname in ("brick_interp", "sample_density_brick"):
         for dtype in DTYPES:
@@ -1341,7 +1455,8 @@ def kernel_line(records, launches):
                     main_production_launches=launches["production"][kname]
                     .get(dtype, 0),
                     train_loop_r5b_launches=launches["train_loop"][kname]
-                    .get(dtype, 0))
+                    .get(dtype, 0),
+                    cli_r5b_launches=launches["cli"][kname].get(dtype, 0))
             loop = records.get((kname, "loop_chunk", dtype))
             if loop is not None:
                 entry.update(loop_chunk_ms=loop["ms"],
@@ -1349,6 +1464,13 @@ def kernel_line(records, launches):
                              loop_chunk_bound_ms=loop["bound_ms"],
                              loop_chunk_library_ms=loop["library_ms"],
                              loop_chunk_max_abs_err=loop["max_abs_err"])
+            cli = records.get((kname, "cli_chunk", dtype))
+            if cli is not None:
+                entry.update(cli_chunk_ms=cli["ms"],
+                             cli_chunk_plain_ms=cli["plain_ms"],
+                             cli_chunk_bound_ms=cli["bound_ms"],
+                             cli_chunk_library_ms=cli["library_ms"],
+                             cli_chunk_max_abs_err=cli["max_abs_err"])
             entries.append(entry)
     return {"kernels": entries}
 
@@ -1371,7 +1493,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN, STAGE_GOLDEN,
-                   ROOT / KERNEL_SOURCE):
+                   CLI_GOLDEN, ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
                   "the repository", file=sys.stderr)
@@ -1389,6 +1511,8 @@ def main() -> int:
     phase_stage_r5b()
     launches["train_loop"], loop_records = phase_train_loop_r5b()
     records.update(loop_records)
+    launches["cli"], cli_records = phase_cli_r5b()
+    records.update(cli_records)
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

@@ -1,23 +1,30 @@
 """Post-hoc clustering of rendered instance embeddings -> discrete object ids.
 
-Port of the global-clustering path of ``contrastive_lift_tpu/inference/
-cluster.py``:
+Port of ``contrastive_lift_tpu/inference/cluster.py``:
 
   * ``create_instances_from_semantics``: prepend a ±inf flag channel marking
     stuff pixels (channel 0 == -inf <=> thing pixel);
   * ``cluster``: 3-sigma outlier rejection -> min/max rescale to the unit
     cube -> 50k subsample (numpy ``default_rng(seed)``, so both packages
-    cluster the same points) -> mean-shift with bin seeding -> predict
-    labels for ALL pixels -> +1 shift (orphans/stuff -> 0) -> one-hot.
+    cluster the same points) -> mean-shift with bin seeding, or HDBSCAN
+    (``inference/hdbscan.py``, scikit-learn's algorithm) -> predict labels
+    for ALL pixels -> +1 shift (orphans/stuff -> 0) -> one-hot;
+  * ``cluster_segmentwise``: the same per predicted thing class with label
+    offsets, also returning per-class centroids;
+  * ``assign_clusters``: nearest-centroid assignment from cached centroids.
 
-HDBSCAN (``use_dbscan``) and the segment-wise / cached-centroid variants are
-not ported yet.
+The distance work (mean-shift, HDBSCAN's spanning tree, the nearest-centre
+assignment) runs on ``device``.
 """
 from __future__ import annotations
 
 import numpy as np
 
-from ..ops.meanshift import MeanShift, silverman_bandwidth
+import torch
+
+from ..ops.meanshift import MeanShift, _nearest_center, silverman_bandwidth
+from ..utils.device import resolve_device
+from .hdbscan import hdbscan_labels
 
 NUM_CLUSTER_POINTS = 50_000
 
@@ -36,8 +43,18 @@ def create_instances_from_semantics(instances: np.ndarray, semantics: np.ndarray
     return padded
 
 
+def _nearest(points: np.ndarray, centers: np.ndarray, device) -> np.ndarray:
+    """Index of each point's nearest centre (float32, on ``device``)."""
+    dev = resolve_device(device)
+    return _nearest_center(
+        torch.from_numpy(np.ascontiguousarray(points, np.float32)).to(dev),
+        torch.from_numpy(np.ascontiguousarray(centers, np.float32)).to(dev),
+        0.0).cpu().numpy()
+
+
 def _fit_predict(features: np.ndarray, all_features: np.ndarray, bandwidth,
-                 use_silverman: bool, rng: np.random.Generator, device):
+                 use_dbscan: bool, use_silverman: bool, cluster_size: int,
+                 rng: np.random.Generator, device):
     """Filter/rescale/subsample/cluster/predict-all.
 
     Returns (labels for all_features rows, centroids in original scale) or
@@ -58,14 +75,24 @@ def _fit_predict(features: np.ndarray, all_features: np.ndarray, bandwidth,
     else:
         sample = rescaled[rng.choice(rescaled.shape[0], NUM_CLUSTER_POINTS,
                                      replace=False)]
-    if sample.shape[0] < 100:
-        return None
-    bw = (silverman_bandwidth(sample.shape[0], sample.shape[1])
-          if use_silverman else bandwidth)
-    ms = MeanShift(bandwidth=bw, bin_seeding=True, min_bin_freq=10,
-                   cluster_all=False, device=device).fit(sample)
-    all_labels = ms.predict((all_features - bias) * scale)
-    return all_labels, ms.cluster_centers_ / scale + bias
+    if not use_dbscan:
+        if sample.shape[0] < 100:
+            return None
+        bw = (silverman_bandwidth(sample.shape[0], sample.shape[1])
+              if use_silverman else bandwidth)
+        ms = MeanShift(bandwidth=bw, bin_seeding=True, min_bin_freq=10,
+                       cluster_all=False, device=device).fit(sample)
+        centroids_scaled = ms.cluster_centers_
+        all_labels = ms.predict((all_features - bias) * scale)
+    else:
+        labels = hdbscan_labels(sample, cluster_size, device=device)
+        if not np.any(labels != -1):
+            return None
+        centroids_scaled = np.stack([sample[labels == cid].mean(axis=0)
+                                     for cid in np.unique(labels) if cid != -1])
+        all_labels = _nearest((all_features - bias) * scale,
+                              centroids_scaled, device)
+    return all_labels, centroids_scaled / scale + bias
 
 
 def _one_hot_instances(all_labels: np.ndarray, num_images: int) -> np.ndarray:
@@ -83,19 +110,87 @@ def cluster(all_thing_features: np.ndarray, bandwidth: float, num_images: int,
             device="cuda") -> np.ndarray:
     """Global clustering -> [num_images, pixels, K+1] one-hot instances.
 
-    ``cluster_size`` only sizes HDBSCAN clusters; ``use_dbscan`` is not
-    ported and raises."""
-    if use_dbscan:
-        raise NotImplementedError("cluster: use_dbscan (HDBSCAN) is not ported")
+    ``cluster_size`` is HDBSCAN's min_cluster_size (``use_dbscan``)."""
     rng = np.random.default_rng(seed)
     thing_mask = all_thing_features[..., 0] == -np.inf
     features = all_thing_features[thing_mask][:, 1:]
     all_features = all_thing_features[:, 1:]
-    result = _fit_predict(features, all_features, bandwidth, use_silverman,
-                          rng, device)
+    result = _fit_predict(features, all_features, bandwidth, use_dbscan,
+                          use_silverman, cluster_size, rng, device)
     if result is None:
         all_labels = np.full(all_features.shape[0], -1, np.int64)
     else:
         all_labels = result[0].astype(np.int64)
+    all_labels[~thing_mask] = -1
+    return _one_hot_instances(all_labels, num_images)
+
+
+def cluster_segmentwise(all_thing_features: np.ndarray,
+                        all_points_semantics: np.ndarray, bandwidth: float,
+                        num_images: int, use_dbscan: bool = False,
+                        use_silverman: bool = False, cluster_size: int = 500,
+                        seed: int = 0, device="cuda"):
+    """Per-thing-class clustering with label offsets; returns
+    (one-hot instances, {thing_class: centroids}). One generator serves the
+    classes in increasing order, as in the JAX package."""
+    rng = np.random.default_rng(seed)
+    sem_labels = np.asarray(all_points_semantics).argmax(axis=-1).reshape(-1)
+    thing_mask = all_thing_features[..., 0] == -np.inf
+    features = all_thing_features[thing_mask][:, 1:]
+    thing_semantics = sem_labels[thing_mask]
+
+    all_labels = np.zeros(all_thing_features.shape[0], np.int64)
+    thing_labels = np.zeros(features.shape[0], np.int64)
+    max_label = 0
+    centroids_by_class = {}
+    for thing_cls in np.unique(thing_semantics):
+        cls_mask = thing_semantics == thing_cls
+        cls_features = features[cls_mask]
+        result = _fit_predict(cls_features, cls_features, bandwidth,
+                              use_dbscan, use_silverman, cluster_size, rng,
+                              device)
+        if result is None:
+            thing_labels[cls_mask] = -1
+            continue
+        cls_labels, centroids = result
+        cls_labels = cls_labels.astype(np.int64)
+        centroids_by_class[int(thing_cls)] = centroids
+        cls_labels[cls_labels != -1] += max_label
+        if np.any(cls_labels != -1):
+            max_label = cls_labels.max() + 1
+        thing_labels[cls_mask] = cls_labels
+
+    all_labels[thing_mask] = thing_labels
+    all_labels[~thing_mask] = -1
+    return _one_hot_instances(all_labels, num_images), centroids_by_class
+
+
+def assign_clusters(all_thing_features: np.ndarray,
+                    all_points_semantics: np.ndarray,
+                    centroids_by_class: dict, num_images: int,
+                    device="cuda") -> np.ndarray:
+    """Assign every thing pixel to its class's nearest cached centroid;
+    classes without centroids are noise."""
+    sem_labels = np.asarray(all_points_semantics).argmax(axis=-1).reshape(-1)
+    thing_mask = all_thing_features[..., 0] == -np.inf
+    features = all_thing_features[thing_mask][:, 1:]
+    thing_semantics = sem_labels[thing_mask]
+
+    all_labels = np.zeros(all_thing_features.shape[0], np.int64)
+    thing_labels = np.zeros(features.shape[0], np.int64)
+    max_label = 0
+    for thing_cls in np.unique(thing_semantics):
+        cls_mask = thing_semantics == thing_cls
+        if int(thing_cls) not in centroids_by_class:
+            thing_labels[cls_mask] = -1
+            continue
+        labels = _nearest(features[cls_mask],
+                          np.asarray(centroids_by_class[int(thing_cls)],
+                                     np.float32), device).astype(np.int64)
+        labels += max_label
+        max_label = labels.max() + 1
+        thing_labels[cls_mask] = labels
+
+    all_labels[thing_mask] = thing_labels
     all_labels[~thing_mask] = -1
     return _one_hot_instances(all_labels, num_images)

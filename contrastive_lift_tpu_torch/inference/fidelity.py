@@ -12,10 +12,19 @@ the scores, so a run on the card can be held against the JAX package's
 numbers. ``render_chunk`` and ``production_chunk`` give the density kernel's
 inputs for one chunk of each render, for timing the kernel on the render's
 own samples.
+
+``write_mos_scene`` and ``cli_run_dir`` lay r5b's synthetic scene and
+checkpoint out as files, so that the render and evaluate CLIs read them as
+a user's run: the scene in the MOS layout (PNG colour, npy labels,
+``metadata.json`` cameras), and a run directory whose ``config.json`` is
+r5b's with the scene as its dataset. ``cli_chunk`` gives the density
+kernel's inputs for the first chunk of that CLI render.
 """
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import time
 import warnings
 from pathlib import Path
@@ -23,13 +32,14 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from ..config import Config
+from ..config import Config, load_config
 from ..data.synthetic import make_synthetic_scene
 from ..metrics.panoptic_quality import panoptic_quality
 from ..ops.fused_grid import build_dense_density
 from ..renderer import render as R
 from ..renderer.render import normalize_coordinates, sample_points_in_box
 from ..utils.device import resolve_device
+from ..utils.png import write_png
 from .cluster import cluster, create_instances_from_semantics
 from .render import (load_model_for_inference, prepare_render, render_frames,
                      render_frames_report)
@@ -47,6 +57,11 @@ CHUNK = 1024
 # the gate renders the production path in chunks of cfg.chunk; the number of
 # termination survivors, round(chunk * term_fraction), depends on it
 PRODUCTION_CHUNK = 4096
+# the render CLI's arguments for r5b's scene: its frame size, the gate's
+# chunk (the termination survivors depend on it) and every 4th of the 14 MOS
+# test frames (4 frames, 24,576 rays)
+CLI_ARGS = ("--image_dim", "64", "96", "--chunk", str(PRODUCTION_CHUNK),
+            "--subsample", "4")
 # the RenderConfig fields render_frames sets before it renders (grouping,
 # L2-only, tail completion, calibrated budgets)
 BUDGET_FIELDS = ("max_segments", "max_subsegments", "max_subsegments_light",
@@ -204,6 +219,23 @@ def load_production(ckpt, scene, device="cuda"):
     return cfg, params, mcfg, production_config(rcfg), state_r, meta
 
 
+def _pass_a_positions(params, mcfg, rcfg, state_r, frames, rays, dev):
+    """(dense pre-activation density grid, softplus shift, the pass-A
+    normalized coordinates of ``rays`` exactly as ``_fine_density`` passes
+    them to ``sample_density_brick``, out-of-box ones included), with the
+    budgets ``render_frames`` calibrates on ``frames``."""
+    with torch.no_grad():
+        rcfg, fused = prepare_render(params, mcfg, rcfg, state_r, frames)
+        o, d, t_min = R._ray_tmin(state_r, torch.from_numpy(rays).to(dev))
+        fine_steps, valid, _ = R._select_subsegments(mcfg, rcfg, state_r, o,
+                                                     d, t_min, fused)
+        k = rcfg.term_first if 0 < rcfg.term_first < fine_steps.shape[1] else None
+        _, _, xyz_n = R.fine_positions(state_r, o, d, t_min,
+                                       fine_steps[:, :k], valid[:, :k])
+        return (build_dense_density(params), mcfg.splus_density_shift,
+                xyz_n.reshape(-1, 3))
+
+
 def production_chunk(ckpt, scene, device="cuda", frame: int = 0,
                      n_rays: int = PRODUCTION_CHUNK):
     """The density kernel's inputs for pass A of the first chunk of
@@ -216,17 +248,8 @@ def production_chunk(ckpt, scene, device="cuda", frame: int = 0,
     dev = resolve_device(device)
     _, params, mcfg, rcfg, state_r, _ = load_production(ckpt, scene, dev)
     rays = scene.val_frames[frame].rays.astype(np.float32)[:n_rays]
-    with torch.no_grad():
-        rcfg, fused = prepare_render(params, mcfg, rcfg, state_r,
-                                     scene.val_frames)
-        o, d, t_min = R._ray_tmin(state_r, torch.from_numpy(rays).to(dev))
-        fine_steps, valid, _ = R._select_subsegments(mcfg, rcfg, state_r, o,
-                                                     d, t_min, fused)
-        k = rcfg.term_first if 0 < rcfg.term_first < fine_steps.shape[1] else None
-        _, _, xyz_n = R.fine_positions(state_r, o, d, t_min,
-                                       fine_steps[:, :k], valid[:, :k])
-        return (build_dense_density(params), mcfg.splus_density_shift,
-                xyz_n.reshape(-1, 3))
+    return _pass_a_positions(params, mcfg, rcfg, state_r, scene.val_frames,
+                             rays, dev)
 
 
 def run_production(ckpt, scene, device="cuda", bandwidth: float = BANDWIDTH,
@@ -257,3 +280,209 @@ def run_production(ckpt, scene, device="cuda", bandwidth: float = BANDWIDTH,
             "warnings": guardrail_messages(caught),
             "n_samples": rcfg.n_samples, "grid_dim": tuple(meta["grid_dim"]),
             "render_seconds": t_render, "cluster_seconds": t_cluster}
+
+
+def rotation_to_quaternion(rot) -> np.ndarray:
+    """wxyz unit quaternion of a 3x3 rotation matrix (the inverse of
+    ``data/mos.py::quaternion_to_rotation``)."""
+    m = np.asarray(rot, np.float64)
+    trace = np.trace(m)
+    if trace > 0:
+        s = 2.0 * np.sqrt(trace + 1.0)
+        q = [0.25 * s, (m[2, 1] - m[1, 2]) / s, (m[0, 2] - m[2, 0]) / s,
+             (m[1, 0] - m[0, 1]) / s]
+    else:
+        i = int(np.argmax(np.diag(m)))
+        j, k = (i + 1) % 3, (i + 2) % 3
+        s = 2.0 * np.sqrt(1.0 + m[i, i] - m[j, j] - m[k, k])
+        q = [0.0] * 4
+        q[0] = (m[k, j] - m[j, k]) / s
+        q[1 + i] = 0.25 * s
+        q[1 + j] = (m[j, i] + m[i, j]) / s
+        q[1 + k] = (m[k, i] + m[i, k]) / s
+    q = np.asarray(q)
+    return q / np.linalg.norm(q)
+
+
+def write_mos_scene(scene, root) -> Path:
+    """All frames of ``scene`` (train, then val) in the MOS layout under
+    ``root``: ``color/*.png`` (8-bit RGB), the machine labels and
+    confidences as ``detic_semantic``, ``detic_instance`` and
+    ``detic_probabilities`` npy, the GT as ``semantic`` / ``instance`` npy,
+    and ``metadata.json`` with the intrinsics normalised by the frame size
+    and each camera's position and wxyz quaternion in the Blender
+    convention (the OpenCV pose times diag(1, -1, -1, 1), which the reader
+    undoes)."""
+    root = Path(root)
+    for sub in ("color", "detic_semantic", "detic_instance",
+                "detic_probabilities", "semantic", "instance"):
+        (root / sub).mkdir(parents=True, exist_ok=True)
+    h, w = scene.image_dim
+    frames = scene.train_frames + scene.val_frames
+    blender2opencv = np.diag([1.0, -1.0, -1.0, 1.0])
+    positions, quaternions = [], []
+    for f in frames:
+        rgb = np.round(np.clip(f.rgbs, 0, 1) * 255).astype(np.uint8)
+        write_png(root / "color" / f"{f.name}.png", rgb.reshape(h, w, 3))
+        for sub, value in (("detic_semantic", f.semantics),
+                           ("detic_instance", f.instances),
+                           ("detic_probabilities", f.confidences),
+                           ("semantic", f.gt_semantics),
+                           ("instance", f.gt_instances)):
+            np.save(root / sub / f"{f.name}.npy", np.asarray(value).reshape(h, w))
+        pose = np.asarray(f.cam2normscene, np.float64) @ blender2opencv
+        positions.append(pose[:3, 3].tolist())
+        quaternions.append(rotation_to_quaternion(pose[:3, :3]).tolist())
+    K = np.asarray(frames[0].intrinsics, np.float64).copy()
+    K[0] /= w
+    K[1] /= h
+    meta = {"camera": {"K": K.tolist(), "positions": positions,
+                       "quaternions": quaternions}}
+    (root / "metadata.json").write_text(json.dumps(meta))
+    return root
+
+
+def cli_run_dir(root, scene_root) -> Path:
+    """A run directory under ``root`` as the render CLI reads one:
+    ``checkpoints/final.npz`` (a link to r5b's checkpoint) and
+    ``config.json``, r5b's configuration with the MOS scene at
+    ``scene_root`` as its dataset. Returns the checkpoint path to pass as
+    ``--ckpt_path``."""
+    run = Path(root)
+    (run / "checkpoints").mkdir(parents=True, exist_ok=True)
+    link = run / "checkpoints" / "final.npz"
+    os.symlink(R5B_CKPT, link)
+    load_config(R5B_CONFIG, {"dataset_class": "mos",
+                             "dataset_root": str(scene_root)}).save(
+        run / "config.json")
+    return link
+
+
+def cli_chunk(ckpt, device="cuda", n_rays: int = PRODUCTION_CHUNK):
+    """The density kernel's inputs for pass A of the first chunk of the
+    render CLI's render with ``CLI_ARGS`` from checkpoint ``ckpt``: the run's
+    config, scene and model loaded as the CLI loads them (head_topk
+    "auto"), the budgets calibrated on the scene's test frames. Returns
+    what ``production_chunk`` returns."""
+    from ..cli.render import run_config
+    from ..data import load_scene
+    dev = resolve_device(device)
+    cfg = run_config(ckpt, (int(CLI_ARGS[1]), int(CLI_ARGS[2])),
+                     int(CLI_ARGS[CLI_ARGS.index("--subsample") + 1]))
+    scene = load_scene(cfg, load_train=False)
+    params, mcfg, rcfg, state_r, _ = load_model_for_inference(
+        ckpt, cfg, scene.num_semantic_classes, white_bg=scene.white_bg,
+        device=dev)
+    rays = scene.val_frames[0].rays.astype(np.float32)[:n_rays]
+    return _pass_a_positions(params, mcfg, rcfg, state_r, scene.val_frames,
+                             rays, dev)
+
+
+# the CLI runs of the cli_r5b golden: mean-shift (the default) and HDBSCAN
+CLI_CLUSTERINGS = {"meanshift": (), "dbscan": ("--use_dbscan",)}
+CLI_METRICS = ("iou", "pq_scene", "sq_scene", "rq_scene")
+# every 3rd point of the HDBSCAN sample is kept in the golden
+HDBSCAN_STRIDE = 3
+
+
+def hdbscan_sample(thing_features: np.ndarray) -> np.ndarray:
+    """The points ``cluster`` hands HDBSCAN for ``thing_features`` (the
+    thing pixels' fast features, 3-sigma filtered and rescaled to the unit
+    cube, as ``inference/cluster.py::_fit_predict`` does; all of them where
+    there are at most 50,000)."""
+    features = thing_features[thing_features[:, 0] == -np.inf][:, 1:]
+    centmean, centstd = features.mean(axis=0), features.std(axis=0)
+    filtered = features[np.all(np.abs(features - centmean) < 3 * centstd,
+                               axis=1)]
+    bias = filtered.min(axis=0)
+    scale = 1.0 / np.maximum(filtered.max(axis=0) - filtered.min(axis=0),
+                             1e-12)
+    return (filtered - bias) * scale
+
+
+def labels_match(a, b) -> bool:
+    """Whether cluster labels ``a`` and ``b`` agree up to renaming the
+    clusters, with noise (-1) in the same places."""
+    a, b = np.asarray(a), np.asarray(b)
+    if not np.array_equal(a == -1, b == -1):
+        return False
+    pairs = set(zip(a[a != -1].tolist(), b[b != -1].tolist()))
+    return (len(pairs) == len({p[0] for p in pairs})
+            == len({p[1] for p in pairs}))
+
+
+def run_cli(ckpt, scene_root, out_root, device="cuda",
+            clusterings=tuple(CLI_CLUSTERINGS)) -> dict:
+    """The render CLI on checkpoint ``ckpt`` (its run's ``config.json``
+    names the scene) with ``CLI_ARGS``, once per clustering of
+    ``clusterings`` (names of ``CLI_CLUSTERINGS``), each followed by the
+    evaluate CLI on the scene at ``scene_root``. Returns per clustering the
+    render summary, the evaluate scores, the budgets the render calibrated
+    and the artifact tree's directory."""
+    from ..cli import evaluate as evaluate_cli
+    from ..cli import render as render_cli
+    h, w = CLI_ARGS[1:3]
+    real = R.calibrate_budgets
+    out = {}
+    for name in clusterings:
+        extra = CLI_CLUSTERINGS[name]
+        calibrated = []
+
+        def spy(*args, **kwargs):
+            calibrated.append(real(*args, **kwargs))
+            return calibrated[-1]
+
+        R.calibrate_budgets = spy
+        try:
+            summary = render_cli.main(
+                ["--ckpt_path", str(ckpt), *CLI_ARGS, *extra, "--output_dir",
+                 str(Path(out_root) / name), "--device", str(device)])
+        finally:
+            R.calibrate_budgets = real
+        scores = evaluate_cli.main(
+            ["--root_path", str(scene_root), "--exp_path",
+             str(Path(out_root) / name), "--image_size", h, w])
+        out[name] = {"summary": summary, "scores": scores,
+                     "budgets": {f: getattr(calibrated[-1], f)
+                                 for f in BUDGET_FIELDS},
+                     "dir": Path(out_root) / name}
+    return out
+
+
+def check_cli(res: dict, golden):
+    """What of ``run_cli``'s result ``res`` breaks the bars of the eager
+    JAX golden ``golden`` (``testdata/r5b_cli_golden.npz``): calibrated
+    budgets equal, pred_semantics equal on at least 99.9% of the pixels,
+    instance_features.npy within the bf16-head bar 3e-2 at the golden's
+    rays, pred_surrogateid 16-bit, and the evaluate scores within 0.005.
+    Returns (the failures, empty when every bar holds; per clustering the
+    share of equal semantics and the largest feature difference)."""
+    from ..utils.png import read_png
+    bad, measured = [], {}
+    names = [str(n) for n in golden["frame_names"]]
+    for name, run in res.items():
+        for field, value in run["budgets"].items():
+            if value != golden[f"budget_{field}"].item():
+                bad.append(f"{name}: budget {field} {value} != "
+                           f"{golden[f'budget_{field}'].item()}")
+        sem = np.stack([read_png(run["dir"] / "pred_semantics" / f"{n}.png")
+                        for n in names])
+        agree = float((sem == golden["pred_semantics"]).mean())
+        if agree < 0.999:
+            bad.append(f"{name}: pred_semantics agree on {agree:.5f}")
+        inst = np.load(run["dir"] / "instance_features.npy")
+        err = float(np.abs(inst[golden["ray_index"]]
+                           - golden["instance_features"]).max())
+        if err > 3e-2:
+            bad.append(f"{name}: instance_features differ by {err}")
+        measured[name] = {"pred_semantics_agree": agree,
+                          "instance_features_max_abs_err": err}
+        for n in names:
+            if read_png(run["dir"] / "pred_surrogateid" / f"{n}.png").dtype \
+                    != np.uint16:
+                bad.append(f"{name}: pred_surrogateid/{n}.png is not 16-bit")
+        for key in CLI_METRICS:
+            want = float(golden[f"{name}_{key}"])
+            if not abs(float(run["scores"][key]) - want) <= 0.005:
+                bad.append(f"{name}: {key} {run['scores'][key]} vs {want}")
+    return bad, measured

@@ -1,17 +1,25 @@
-"""Inference pipeline, first half: checkpoint -> rendered per-frame maps.
+"""Inference pipeline: checkpoint -> rendered maps -> clustering -> artifacts.
 
-Port of ``load_model_for_inference`` and ``render_frames`` from
-``contrastive_lift_tpu/inference/render.py``. The grids (with the
-empty-space-skipping tables when the config skips) are built once per call,
-the budgets are calibrated on a probe of the frames' rays, every chunk of
-rays renders through ``renderer.render_rays`` on the device, and the maps
-come back as numpy arrays. Artifact writing (PNGs,
-``render_checkpoint_outputs``) is not ported yet.
+Port of ``load_model_for_inference``, ``render_frames`` and
+``render_checkpoint_outputs`` from ``contrastive_lift_tpu/inference/
+render.py``. The grids (with the empty-space-skipping tables when the
+config skips) are built once per call, the budgets are calibrated on a
+probe of the frames' rays, every chunk of rays renders through
+``renderer.render_rays`` on the device, and the maps come back as numpy
+arrays. ``render_checkpoint_outputs`` then keeps the fast half of the
+slow-fast embeddings, clusters them and writes the reference's artifact
+tree: ``instance_features.npy``, ``thing_features.npy``,
+``slow_features.npy``, ``pred_semantics/*.png`` (uint8),
+``pred_surrogateid/*.png`` (uint16) and the visualisation grids, the PNGs
+through ``utils/png.py`` where the JAX package uses PIL.
 """
 from __future__ import annotations
 
 import dataclasses
+import pickle
+import time
 import warnings
+from pathlib import Path
 from typing import List, NamedTuple
 
 import numpy as np
@@ -24,7 +32,12 @@ from ..io.checkpoint import load_checkpoint
 from ..io.convert import params_from_numpy
 from ..ops.fused_grid import FusedGrids, build_render_grids
 from ..renderer import render as R
+from ..utils import geometry as geo
 from ..utils.device import resolve_device
+from ..utils.png import write_png
+from ..utils.viz import save_image, visualize_panoptic_outputs
+from .cluster import (assign_clusters, cluster, cluster_segmentwise,
+                      create_instances_from_semantics)
 
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 
@@ -48,8 +61,10 @@ def load_model_for_inference(ckpt_path, cfg: Config, num_semantic_classes: int,
     mcfg = make_model_config(cfg, num_semantic_classes)
     rcfg = make_render_config(cfg, bbox_aabb, grid_dim, mcfg,
                               step_ratio=step_ratio, white_bg=white_bg)
-    if head_topk:
-        rcfg = dataclasses.replace(rcfg, head_topk=int(head_topk))
+    # None (or 0) renders the heads densely, whatever the config's
+    # head_topk_train would give make_render_config
+    rcfg = dataclasses.replace(rcfg, head_topk=int(head_topk) if head_topk
+                               else None)
     state_r = R.make_render_state(bbox_aabb, grid_dim, step_ratio, device=dev)
     return params_from_numpy(params, dev), mcfg, rcfg, state_r, meta
 
@@ -229,3 +244,93 @@ def render_frames(params, mcfg, rcfg, state_r, frames: List[FrameData],
         dispatch_group=dispatch_group, l2_only=l2_only,
         head_tail_eps=head_tail_eps, tail_complete=tail_complete,
         device=device).maps
+
+
+def render_checkpoint_outputs(
+        params, mcfg, rcfg, state_r, cfg: Config,
+        frames: List[FrameData], thing_classes, output_dir,
+        bandwidth: float = 0.15, use_dbscan: bool = False,
+        segmentwise: bool = False, use_silverman: bool = False,
+        cluster_size: int = 500, cached_centroids_path=None,
+        chunk: int = 8192, save_visualizations: bool = True,
+        mesh=None, termination: bool = True,
+        head_term: bool = True, l2_only: bool = True,
+        tail_complete: bool | None = None, device="cuda") -> dict:
+    """Full inference: render + cluster + write artifacts. Returns the
+    summary (frames, render and cluster seconds, rays/s, output dir)."""
+    output_dir = Path(output_dir)
+    for sub in ("vis_semantics_and_surrogate", "pred_semantics",
+                "pred_surrogateid"):
+        (output_dir / sub).mkdir(parents=True, exist_ok=True)
+    h, w = cfg.image_dim
+
+    t_render0 = time.perf_counter()
+    per_frame = render_frames(params, mcfg, rcfg, state_r, frames, chunk,
+                              mesh=mesh, data_axis=cfg.data_axis,
+                              termination=termination, head_term=head_term,
+                              l2_only=l2_only, tail_complete=tail_complete,
+                              device=device)
+    t_render = time.perf_counter() - t_render0
+
+    all_sem = [f["semantics"] for f in per_frame]
+    all_inst = np.concatenate([f["instances"] for f in per_frame])
+    slow_features = None
+    if mcfg.slow_fast_mode:
+        slow_features = all_inst[:, cfg.max_instances:]
+        all_inst = all_inst[:, :cfg.max_instances]  # keep fast features
+    if cfg.use_delta:
+        rays = np.concatenate([f.rays for f in frames])
+        dists = np.concatenate([f["depth"] for f in per_frame])
+        all_inst = all_inst + rays[:, 0:3] + dists[:, None] * rays[:, 3:6]
+
+    np.save(output_dir / "instance_features.npy", all_inst)
+    sem_cat = np.concatenate(all_sem)
+    thing_features = create_instances_from_semantics(all_inst, sem_cat,
+                                                     thing_classes)
+    np.save(output_dir / "thing_features.npy", thing_features)
+    if slow_features is not None:
+        np.save(output_dir / "slow_features.npy", slow_features)
+
+    t_cluster0 = time.perf_counter()
+    num_images = len(frames)
+    if cached_centroids_path is not None:
+        with open(cached_centroids_path, "rb") as f:
+            all_centroids = pickle.load(f)
+        instances_oh = assign_clusters(thing_features, sem_cat, all_centroids,
+                                       num_images, device=device)
+    elif segmentwise:
+        instances_oh, _ = cluster_segmentwise(
+            thing_features, sem_cat, bandwidth, num_images, use_dbscan,
+            use_silverman, cluster_size, device=device)
+    else:
+        instances_oh = cluster(thing_features, bandwidth, num_images,
+                               use_dbscan, use_silverman, cluster_size,
+                               device=device)
+    t_cluster = time.perf_counter() - t_cluster0
+
+    for i, frame in enumerate(frames):
+        name = f"{frame.name}.png"
+        out = per_frame[i]
+        sem_label = out["semantics"].argmax(-1).reshape(h, w)
+        inst_label = np.asarray(instances_oh[i]).argmax(-1).reshape(h, w)
+        write_png(output_dir / "pred_semantics" / name,
+                  sem_label.astype(np.uint8))
+        write_png(output_dir / "pred_surrogateid" / name,
+                  inst_label.astype(np.uint16))
+        if save_visualizations:
+            depth = (geo.distance_to_depth(frame.intrinsics, out["depth"], h, w)
+                     if frame.intrinsics is not None else out["depth"])
+            grid = visualize_panoptic_outputs(
+                out["rgb"], out["semantics"], np.asarray(instances_oh[i]),
+                np.asarray(depth), None, None, None, h, w,
+                thing_classes=thing_classes, visualize_entropy=False)
+            save_image(output_dir / "vis_semantics_and_surrogate" / name, grid)
+
+    rays_total = num_images * h * w
+    return {
+        "num_frames": num_images,
+        "render_seconds": t_render,
+        "cluster_seconds": t_cluster,
+        "rays_per_second": rays_total / max(t_render, 1e-9),
+        "output_dir": str(output_dir),
+    }

@@ -1,8 +1,10 @@
 """Camera / ray geometry in numpy (float32).
 
-Port of the ray-generation part of ``contrastive_lift_tpu/utils/geometry.py``
-(pinhole rays, unit-sphere far plane, the 8-float ray layout), which the
-synthetic scene needs to regenerate its frames.
+Port of part of ``contrastive_lift_tpu/utils/geometry.py``: the ray
+generation (pinhole rays, unit-sphere far plane, the 8-float ray layout),
+which the synthetic scene needs to regenerate its frames; the frustum-union
+scene normalisation of the PanopLi and MOS readers; and the distance <->
+depth conversion of the render's visualisations.
 """
 from __future__ import annotations
 
@@ -55,3 +57,74 @@ def make_ray_bundle(directions, cam2world, near: float = 0.01):
     near_col = np.full_like(far, near)
     return np.concatenate([rays_o, rays_d, near_col[:, None], far[:, None]],
                           axis=-1)
+
+
+# ---------------------------------------------------------------------------
+# Scene normalization: fit the union of camera frustums into the unit sphere.
+# ---------------------------------------------------------------------------
+
+def frustum_world_sphere(dims, intrinsics, cam2worlds, max_depth: float):
+    """(center, radius) of a sphere containing all camera frustums.
+
+    dims [N,2] (h,w); intrinsics [N,3,3]; cam2worlds [N,4,4]."""
+    dims = np.asarray(dims, np.float32)
+    intrinsics = np.asarray(intrinsics, np.float32)
+    cam2worlds = np.asarray(cam2worlds, np.float32)
+    n = len(dims)
+    # three homogeneous image-corner skeleton points in (h, w, 1) order
+    h_img_corners = np.array([[0, 1, 1], [1, 0, 1], [1, 1, 1]], np.float32)
+    intr_hw = intrinsics[:, [1, 0, 2]]  # K rows are WH-major -> convert to HW
+    intr_inv = np.linalg.inv(intr_hw)
+    hw1 = np.concatenate([dims, np.ones((n, 1), np.float32)], axis=1)  # [N,3]
+    skel = hw1[:, None, :] * h_img_corners[None, :, :]                 # [N,3,3]
+    corners_far = np.einsum("nij,nkj->nki", intr_inv, skel) * max_depth
+    corners_near = np.einsum("nij,nkj->nki", intr_inv, skel) * 0.01
+    corners = np.concatenate([corners_far, corners_near], axis=0)      # [2N,3,3]
+    corners_h = np.concatenate(
+        [corners, np.ones((*corners.shape[:2], 1), np.float32)], -1)
+    c2w2 = np.concatenate([cam2worlds, cam2worlds], axis=0)
+    world = np.einsum("nij,nkj->nki", c2w2, corners_h).reshape(-1, 4)[:, :3]
+    center = world.mean(axis=0)
+    radius = np.linalg.norm(world - center, axis=1).max()
+    return center, radius
+
+
+def compute_world2normscene(dims, intrinsics, cam2worlds, max_depth: float,
+                            rescale_factor: float = 1.0) -> np.ndarray:
+    """4x4 transform scaling the scene so all frustums fit in the unit
+    sphere."""
+    if rescale_factor < 1.0:
+        raise ValueError(f"rescale_factor {rescale_factor} is below 1")
+    center, radius = frustum_world_sphere(dims, intrinsics, cam2worlds,
+                                          max_depth)
+    scale = 1.0 / (rescale_factor * radius)
+    transform = np.eye(4, dtype=np.float32)
+    transform[:3, :3] *= scale
+    transform[:3, 3] = -center * scale
+    return transform
+
+
+# ---------------------------------------------------------------------------
+# Distance <-> depth
+# ---------------------------------------------------------------------------
+
+def _pixel_norms(intrinsics, height: int, width: int) -> np.ndarray:
+    """|K^-1 (i, j, 1)| of every pixel, [H*W] float32."""
+    intrinsics = np.asarray(intrinsics, np.float32)
+    i, j = pixel_grid(height, width)
+    uvh = np.stack([i.reshape(-1), j.reshape(-1),
+                    np.ones(height * width, np.float32)], axis=-1)
+    pts = uvh @ np.linalg.inv(intrinsics).T
+    return np.linalg.norm(pts, axis=-1)
+
+
+def distance_to_depth(intrinsics, dist, height: int, width: int) -> np.ndarray:
+    """Per-pixel ray distance -> z-depth; ``dist`` flat [H*W] or [H, W]."""
+    dist = np.asarray(dist).reshape(-1)
+    return dist / _pixel_norms(intrinsics, height, width)
+
+
+def depth_to_distance(intrinsics, depth, height: int, width: int) -> np.ndarray:
+    """Per-pixel z-depth -> ray distance; ``depth`` flat [H*W] or [H, W]."""
+    depth = np.asarray(depth).reshape(-1)
+    return depth * _pixel_norms(intrinsics, height, width)

@@ -526,3 +526,21 @@ def test_trainer_fit_on_card_matches_cpu(cuda_device, tmp_path):
     assert len(vals1) == len(vals0) == 2
     for v1, v0 in zip(vals1, vals0):
         assert abs(v1 - v0) <= 10 * np.log10(1 + 2e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seed,min_cluster_size", [(0, 15), (1, 5), (2, 100)])
+def test_hdbscan_on_card_matches_cpu(cuda_device, seed, min_cluster_size):
+    """HDBSCAN's spanning tree built on the card gives the labels of the
+    CPU run on the same seeded points (blobs, uniform noise and exact
+    duplicates): equal."""
+    from contrastive_lift_tpu_torch.inference.hdbscan import hdbscan_labels
+    rng = np.random.default_rng(seed)
+    centers = rng.uniform(0, 1, (4, 3))
+    pts = np.concatenate(
+        [c + rng.normal(0, 0.04, (rng.integers(50, 400), 3)) for c in centers]
+        + [rng.uniform(0, 1, (100, 3))]).astype(np.float32)
+    pts = np.concatenate([pts, pts[:30]])
+    np.testing.assert_array_equal(
+        hdbscan_labels(pts, min_cluster_size, device=cuda_device),
+        hdbscan_labels(pts, min_cluster_size, device="cpu"))

@@ -40,6 +40,21 @@ counts the target resolution of the shrunk AABB and the sketches of every
 plane and line after ``upsample_volume_grid`` to it. It writes
 ``contrastive_lift_tpu_torch/testdata/r5b_stage_golden.npz``; add the
 argument ``stage``.
+
+``write_cli_golden()`` runs the JAX package's render and evaluate CLIs on
+r5b as a user's run: r5b's synthetic scene written in the MOS layout
+(``inference/fidelity.py::write_mos_scene``, PNG colour that PIL reads
+pixel for pixel as it was written) and a run directory with r5b's
+config pointing at it (``cli_run_dir``), rendered eagerly with
+``CLI_ARGS`` (64x96, 4,096-ray chunks, every 4th of the 14 test frames),
+once with mean-shift and once with ``--use_dbscan``, each scored by the
+evaluate CLI. It writes
+``contrastive_lift_tpu_torch/testdata/r5b_cli_golden.npz``: the calibrated
+budgets, the mean-shift run's ``pred_semantics`` and its
+``instance_features.npy`` at every 12th ray, both runs' scores, and every
+3rd point of the HDBSCAN sample of the thing features with the labels
+scikit-learn gives it at a third of the CLI's min_cluster_size; add the
+argument ``cli``.
 """
 import subprocess
 import sys
@@ -47,9 +62,12 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 
 ROOT = Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
+# as the other port test files: Tier-1 runs several workers on the host
+torch.set_num_threads(2)
 
 from contrastive_lift_tpu_torch.inference.fidelity import (  # noqa: E402
     BANDWIDTH, BUDGET_FIELDS, CHUNK, PRODUCTION_CHUNK, R5B_CKPT, R5B_SCENE,
@@ -59,6 +77,7 @@ GOLDEN = ROOT / "contrastive_lift_tpu_torch" / "testdata" / "r5b_dense_golden.np
 PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
 TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
 STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
+CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
 RAY_STRIDE = 12
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 # a golden ray counts as moved by jit where a map differs by more than this
@@ -67,6 +86,7 @@ COMMAND = "JAX_PLATFORMS=cpu python tests/test_torch_port_golden.py"
 PRODUCTION_COMMAND = COMMAND + " production"
 TRAIN_COMMAND = COMMAND + " train"
 STAGE_COMMAND = COMMAND + " stage"
+CLI_COMMAND = COMMAND + " cli"
 # the training golden's sampler seed
 TRAIN_SEED = 0
 
@@ -416,6 +436,82 @@ def write_stage_golden(path=STAGE_GOLDEN) -> dict:
     return out
 
 
+def write_cli_golden(path=CLI_GOLDEN) -> dict:
+    """The JAX package's render and evaluate CLIs on r5b's scene and
+    checkpoint laid out as files, eagerly; save the golden (see the module
+    docstring)."""
+    import tempfile
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from sklearn.cluster import HDBSCAN
+
+    from contrastive_lift_tpu.cli import evaluate as evaluate_cli
+    from contrastive_lift_tpu.cli import render as render_cli
+    from contrastive_lift_tpu.inference import render as jrender
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        CLI_ARGS, CLI_CLUSTERINGS, CLI_METRICS, HDBSCAN_STRIDE, cli_run_dir,
+        e2e_scene, hdbscan_sample, write_mos_scene)
+
+    out = {}
+    real = jrender.R.calibrate_budgets
+    calibrated = []
+
+    def spy(*args, **kwargs):
+        calibrated.append(real(*args, **kwargs))
+        return calibrated[-1]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        scene_root = write_mos_scene(e2e_scene(*R5B_SCENE), tmp / "scene")
+        ckpt = cli_run_dir(tmp / "run", scene_root)
+        h, w = CLI_ARGS[1:3]
+        jrender.R.calibrate_budgets = spy
+        try:
+            for name, extra in CLI_CLUSTERINGS.items():
+                with jax.disable_jit():
+                    render_cli.main(["--ckpt_path", str(ckpt), *CLI_ARGS,
+                                     *extra, "--output_dir", str(tmp / name)])
+                evaluate_cli.main(["--root_path", str(scene_root),
+                                   "--exp_path", str(tmp / name),
+                                   "--image_size", h, w])
+                lines = (tmp / name / "metrics.txt").read_text().splitlines()
+                scores = dict(line.split(": ") for line in lines)
+                for key, src in zip(CLI_METRICS, ("iou", "pq", "sq", "rq")):
+                    out[f"{name}_{key}"] = float(scores[src])
+        finally:
+            jrender.R.calibrate_budgets = real
+        budgets = [{f: getattr(c, f) for f in BUDGET_FIELDS}
+                   for c in calibrated]
+        assert all(b == budgets[0] for b in budgets), budgets
+        names = sorted(p.stem for p in (tmp / "meanshift" / "pred_semantics")
+                       .iterdir())
+        from PIL import Image
+        pred = np.stack([np.array(Image.open(
+            tmp / "meanshift" / "pred_semantics" / f"{n}.png")) for n in names])
+        inst = np.load(tmp / "meanshift" / "instance_features.npy")
+        sample = hdbscan_sample(np.load(tmp / "dbscan" / "thing_features.npy"))
+    idx = np.arange(0, len(inst), RAY_STRIDE)
+    kept = sample[::HDBSCAN_STRIDE].astype(np.float32)
+    # the CLI's min_cluster_size, scaled to the kept share of the points
+    min_size = 500 // HDBSCAN_STRIDE
+    labels = HDBSCAN(min_cluster_size=min_size, min_samples=1,
+                     allow_single_cluster=True, copy=True).fit(kept).labels_
+    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                            capture_output=True, text=True).stdout.strip()
+    out.update(**{f"budget_{f}": v for f, v in budgets[0].items()},
+               frame_names=np.asarray(names), pred_semantics=pred,
+               ray_index=idx, instance_features=inst[idx],
+               hdbscan_sample=kept, hdbscan_labels=labels.astype(np.int16),
+               hdbscan_points=len(sample), cluster_size=500,
+               hdbscan_min_cluster_size=min_size,
+               cli_args=np.asarray(CLI_ARGS), jit=False, commit=commit,
+               command=CLI_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
 def test_golden_file_layout():
     """The committed golden holds the maps at every 12th ray of the 4 val
     frames, finite, with the scores and its provenance."""
@@ -611,6 +707,70 @@ def test_port_on_cpu_matches_stage_golden():
     assert bad == [] and notes == []
 
 
+def test_cli_golden_layout():
+    """The committed CLI golden: 4 frames of 64x96 predictions, the
+    instance features at every 12th ray, finite scores for both clusterings,
+    the budgets of the production path, and scikit-learn's HDBSCAN labels of
+    every 3rd sample point; under 200 KB."""
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        CLI_ARGS, CLI_CLUSTERINGS, CLI_METRICS, HDBSCAN_STRIDE)
+    assert CLI_GOLDEN.stat().st_size < 200 << 10
+    with np.load(CLI_GOLDEN) as g:
+        assert list(g["frame_names"]) == ["0054", "0058", "0062", "0066"]
+        assert g["pred_semantics"].shape == (4, 64, 96)
+        assert g["pred_semantics"].dtype == np.uint8
+        assert g["instance_features"].shape == (2048, 3)
+        np.testing.assert_array_equal(g["ray_index"],
+                                      np.arange(0, 4 * 64 * 96, RAY_STRIDE))
+        for name in CLI_CLUSTERINGS:
+            for key in CLI_METRICS:
+                assert np.isfinite(float(g[f"{name}_{key}"])), (name, key)
+        for field in BUDGET_FIELDS:
+            assert g[f"budget_{field}"].shape == ()
+        assert 0 < int(g["budget_term_first"]) < int(g["budget_max_subsegments"])
+        n = -(-int(g["hdbscan_points"]) // HDBSCAN_STRIDE)
+        assert g["hdbscan_sample"].shape == (n, 3)
+        assert g["hdbscan_labels"].shape == (n,)
+        assert int(g["hdbscan_min_cluster_size"]) == 500 // HDBSCAN_STRIDE
+        assert int(g["hdbscan_labels"].max()) >= 1   # at least two clusters
+        assert list(g["cli_args"]) == list(CLI_ARGS)
+        assert not bool(g["jit"])
+        assert len(str(g["commit"])) == 40
+        assert str(g["command"]) == CLI_COMMAND
+
+
+@pytest.mark.parametrize("clustering", [
+    "meanshift", pytest.param("dbscan", marks=pytest.mark.slow)])
+def test_port_on_cpu_matches_cli_golden(tmp_path, clustering):
+    """The port's render and evaluate CLIs on the CPU (``fidelity.run_cli``)
+    within the golden's bars (``fidelity.check_cli``), for each clustering.
+    Mean-shift takes about 25 s alone; HDBSCAN adds a 24,282-point spanning
+    tree on the CPU and about 50 s alone, several minutes beside the other
+    Tier-1 workers, so it is marked slow (the card runs both in
+    ``chip_smoke.py``)."""
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        check_cli, cli_run_dir, e2e_scene, run_cli, write_mos_scene)
+    scene_root = write_mos_scene(e2e_scene(*R5B_SCENE), tmp_path / "scene")
+    ckpt = cli_run_dir(tmp_path / "run", scene_root)
+    res = run_cli(ckpt, scene_root, tmp_path / "out", device="cpu",
+                  clusterings=(clustering,))
+    with np.load(CLI_GOLDEN) as g:
+        bad, measured = check_cli(res, g)
+    assert bad == [], measured
+
+
+def test_port_hdbscan_matches_cli_golden():
+    """The port's HDBSCAN on the CPU gives scikit-learn's labels of the
+    golden's sample of r5b's thing features, up to a permutation."""
+    from contrastive_lift_tpu_torch.inference.fidelity import labels_match
+    from contrastive_lift_tpu_torch.inference.hdbscan import hdbscan_labels
+    with np.load(CLI_GOLDEN) as g:
+        labels = hdbscan_labels(g["hdbscan_sample"],
+                                int(g["hdbscan_min_cluster_size"]),
+                                device="cpu")
+        assert labels_match(labels, g["hdbscan_labels"])
+
+
 @pytest.mark.slow
 def test_golden_regenerates(tmp_path):
     """write_golden() reproduces the committed file: maps within 1e-4 (CPU
@@ -644,7 +804,12 @@ def test_production_golden_regenerates(tmp_path):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["stage"]:
+    if sys.argv[1:] == ["cli"]:
+        rec = write_cli_golden()
+        print({k: v for k, v in rec.items() if k not in (
+            "pred_semantics", "instance_features", "ray_index",
+            "hdbscan_sample", "hdbscan_labels")})
+    elif sys.argv[1:] == ["stage"]:
         rec = write_stage_golden()
         print({k: v for k, v in rec.items() if k != "sketches"})
     elif sys.argv[1:] == ["train"]:

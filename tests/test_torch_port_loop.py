@@ -548,7 +548,12 @@ def test_data_parallel_is_not_ported(scene, tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["panopli", "mos"])
-def test_image_readers_wait_for_slice_1c(kind):
+def test_image_readers_wait_for_slice_1c(kind, tmp_path):
+    """Slice 1c ported the readers: ``load_scene`` no longer refuses the
+    image datasets but reads them (here a missing scene folder, which the
+    reader reports; tests/test_torch_port_readers.py reads real ones)."""
     from contrastive_lift_tpu_torch.data import load_scene
-    with pytest.raises(NotImplementedError, match="slice 1c"):
-        load_scene(TConfig(dataset_class=kind, num_workers=1))
+    root = tmp_path / "no_scene"
+    with pytest.raises(FileNotFoundError, match="no_scene"):
+        load_scene(TConfig(dataset_class=kind, dataset_root=str(root),
+                           num_workers=1))

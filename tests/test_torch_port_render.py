@@ -297,6 +297,7 @@ def test_unported_options_raise(tmp_path):
             fn(p, distilled, dense, s, rays)
         with pytest.raises(NotImplementedError, match="head_select"):
             fn(p, m, dataclasses.replace(dense, head_select="rank"), s, rays)
-    with pytest.raises(NotImplementedError, match="use_dbscan"):
-        tcluster.cluster(np.zeros((200, 4), np.float32), 0.1, 1,
-                         use_dbscan=True, device="cpu")
+    # HDBSCAN is ported (slice 1c): clustering with it runs; these
+    # features have no thing pixel, so every pixel is noise
+    assert tcluster.cluster(np.zeros((200, 4), np.float32), 0.1, 1,
+                            use_dbscan=True, device="cpu").shape == (1, 200, 1)
