@@ -134,7 +134,36 @@ Phases, each printing JSON lines with their seconds:
              (``fidelity.cli_chunk``), timed and bounded as in the kernels
              phase. Prints render and cluster seconds and rays/s of each
              clustering beside the card's name and power limit;
-11. profile - only with ``--profile``: one more warm render of the 4 val
+11. tools_r5b - the tools of slice 3a as a user runs them, on the same
+             scene with a run directory rendering every 4th test frame
+             (``inference/fidelity.py::tools_run_dir``, ``run_tools``):
+             ``cli.find_bandwidth`` on every 18th train frame (3 frames,
+             the reference's 50-value MOS grid), ``cli.extract_centroids``
+             at its best bandwidth, ``cli.render --cached_centroids_path``
+             then ``cli.evaluate``, ``cli.visualize_bboxes`` with the mbr and
+             the aabb method, ``cli.render_legacy`` on the test frames and
+             on a 4-pose orbit; ``renderer/editing.py::render_edited`` with
+             each edit on the golden's 512 rays and box, float32 heads, TF32
+             off (``run_edits``); and a reference-layout Lightning
+             checkpoint at r5b's widths from a seeded generator, saved with
+             ``torch.save``, converted by ``io/torch_import.py`` and its
+             first val frame rendered on the production path
+             (``run_import``). Held to the eager JAX golden
+             ``contrastive_lift_tpu_torch/testdata/r5b_tools_golden.npz``
+             (``fidelity.check_tools``, ``check_edits``): the curve as long
+             and each PQ within 0.005, the best bandwidth equal; per class
+             as many centroids, each within 3e-2 of the golden's nearest;
+             the cached-centroid render's budgets equal, pred_semantics
+             99.9%, iou/pq/sq/rq within 0.005; as many boxes, matched up
+             to a permutation of the ids, position and extent within 1e-2 of
+             the AABB's extent; the legacy semantics on 99.9% and surrogate
+             ids on 99% of the pixels; the edits' maps within 1e-4, delete
+             lowering and extract zeroing the opacity; the imported render's
+             maps finite with a float32 density-kernel launch; the float32
+             density kernel launched in the phase. Prints each tool's host
+             seconds and rays/s and the phase's kernel launches by row type
+             beside the card's name and power limit;
+12. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
@@ -147,7 +176,7 @@ Phases, each printing JSON lines with their seconds:
 Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
 on the render-chunk inputs, the fused form also on the production chunk,
 the loop chunk and the CLI chunk, with its launches in main_production, in
-train_loop_r5b's render and in cli_r5b) and,
+train_loop_r5b's render, in cli_r5b and in tools_r5b) and,
 last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -166,6 +195,7 @@ PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
 TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
 STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
 CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
+TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
 # warm steps of train_r5b after step 1, and the sampler seed of those
 TRAIN_STEPS = 10
 TRAIN_STEP_SEED = 1
@@ -1423,6 +1453,80 @@ def phase_cli_r5b():
     return launches, records
 
 
+def phase_tools_r5b():
+    """The calibration, bounding-box, legacy-render and editing tools and
+    the importer on r5b laid out as files, held to the tools golden.
+    Returns the density-kernel launches of the phase."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=runs) as tmp, \
+            np.load(TOOLS_GOLDEN) as g:
+        tmp = Path(tmp)
+        scene_root = fid.write_mos_scene(fid.e2e_scene(*fid.R5B_SCENE),
+                                         tmp / "scene")
+        ckpt = fid.tools_run_dir(tmp / "run", scene_root)
+        bi.reset_launches()
+        res = fid.run_tools(ckpt, scene_root, tmp / "out", device="cuda")
+        edits = fid.run_edits(ckpt, g, device="cuda")
+        before_import = launch_counts()
+        imported = fid.run_import(tmp / "import", device="cuda")
+        launches = launch_counts()
+        bad, measured = fid.check_tools(res, g)
+        bad_edits, edit_errs = fid.check_edits(edits, g)
+        bad += bad_edits
+        golden_best = [float(g["bw_best_value"]), float(g["bw_best_pq"])]
+    import_f32 = (launches["sample_density_brick"].get("float32", 0)
+                  - before_import["sample_density_brick"].get("float32", 0))
+    for key, value in imported["maps"].items():
+        if not np.isfinite(value).all():
+            bad.append(f"imported checkpoint: {key} map is not finite")
+    if import_f32 < 1:
+        bad.append("the imported checkpoint's render never launched the "
+                   "float32 sample_density_brick kernel")
+    if launches["sample_density_brick"].get("float32", 0) < 1:
+        bad.append("tools_r5b never launched the float32 "
+                   "sample_density_brick kernel")
+    tools = {name: (run["seconds"], run["rays"]) for name, run in res.items()}
+    tools.update({f"render_edited_{k}": (run["seconds"], run["rays"])
+                  for k, run in edits.items()})
+    tools["import_render"] = (imported["seconds"], imported["rays"])
+    for name, (sec, rays) in tools.items():
+        emit({"phase": "tools_r5b", "tool": name, "card": card,
+              "seconds": sec, "rays": rays, "rays_per_second": rays / sec})
+    bw = res["find_bandwidth"]
+    emit({"phase": "tools_r5b", "card": card, "launches": launches,
+          "import_f32_launches": import_f32,
+          "thing_points": bw["thing_points"],
+          "best_bandwidth": bw["result"]["best_value"],
+          "best_pq": bw["result"]["best_pq"],
+          "golden_best": golden_best,
+          "cached_scores": res["render_cached"]["scores"],
+          "boxes": {m: len(res[f"visualize_bboxes_{m}"]["boxes"]["ids"])
+                    for m in fid.BOX_RUN_METHODS},
+          "edit_max_abs_err": edit_errs, **measured,
+          "import_info": imported["info"],
+          "import_seconds": imported["import_seconds"],
+          "failures": bad, "seconds": time.perf_counter() - t_phase})
+    print("tools_r5b: " + ", ".join(f"{name} {sec:.2f} s ({rays / sec:.0f} "
+                                    f"rays/s)" for name, (sec, rays)
+                                    in tools.items()) + f" on {card}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"tools_r5b differs from the JAX golden: {bad}")
+    return launches
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
     on the render-chunk inputs (the dense main path's own) and its launches
@@ -1457,6 +1561,7 @@ def kernel_line(records, launches):
                     train_loop_r5b_launches=launches["train_loop"][kname]
                     .get(dtype, 0),
                     cli_r5b_launches=launches["cli"][kname].get(dtype, 0))
+            entry["tools_r5b_launches"] = launches["tools"][kname].get(dtype, 0)
             loop = records.get((kname, "loop_chunk", dtype))
             if loop is not None:
                 entry.update(loop_chunk_ms=loop["ms"],
@@ -1493,7 +1598,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN, STAGE_GOLDEN,
-                   CLI_GOLDEN, ROOT / KERNEL_SOURCE):
+                   CLI_GOLDEN, TOOLS_GOLDEN, ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
                   "the repository", file=sys.stderr)
@@ -1513,6 +1618,7 @@ def main() -> int:
     records.update(loop_records)
     launches["cli"], cli_records = phase_cli_r5b()
     records.update(cli_records)
+    launches["tools"] = phase_tools_r5b()
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

@@ -35,13 +35,15 @@ def parse_head_topk(value: str):
     return int(value)
 
 
-def run_config(ckpt, image_dim, subsample: int) -> Config:
+def run_config(ckpt, image_dim, subsample: int | None) -> Config:
     """The config of the run that ``ckpt`` belongs to (the ``config.json``
     snapshotted beside its ``checkpoints/`` folder, else the defaults), set
-    to render every ``subsample``-th test frame at ``image_dim``."""
+    to render every ``subsample``-th frame (None keeps the config's) at
+    ``image_dim``."""
     cfg_path = Path(ckpt).parents[1] / "config.json"
     cfg = load_config(cfg_path) if cfg_path.exists() else Config()
-    cfg.subsample_frames = subsample
+    if subsample is not None:
+        cfg.subsample_frames = subsample
     cfg.image_dim = tuple(image_dim)
     return cfg
 

@@ -22,6 +22,7 @@ kernel's inputs for the first chunk of that CLI render.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -342,19 +343,19 @@ def write_mos_scene(scene, root) -> Path:
     return root
 
 
-def cli_run_dir(root, scene_root) -> Path:
+def cli_run_dir(root, scene_root, overrides=None) -> Path:
     """A run directory under ``root`` as the render CLI reads one:
     ``checkpoints/final.npz`` (a link to r5b's checkpoint) and
     ``config.json``, r5b's configuration with the MOS scene at
-    ``scene_root`` as its dataset. Returns the checkpoint path to pass as
-    ``--ckpt_path``."""
+    ``scene_root`` as its dataset and ``overrides`` (config fields) set.
+    Returns the checkpoint path to pass as ``--ckpt_path``."""
     run = Path(root)
     (run / "checkpoints").mkdir(parents=True, exist_ok=True)
     link = run / "checkpoints" / "final.npz"
     os.symlink(R5B_CKPT, link)
     load_config(R5B_CONFIG, {"dataset_class": "mos",
-                             "dataset_root": str(scene_root)}).save(
-        run / "config.json")
+                             "dataset_root": str(scene_root),
+                             **(overrides or {})}).save(run / "config.json")
     return link
 
 
@@ -411,6 +412,30 @@ def labels_match(a, b) -> bool:
             == len({p[1] for p in pairs}))
 
 
+@contextlib.contextmanager
+def recorded_budgets(module=R):
+    """Inside, every render config ``module.calibrate_budgets`` returns is
+    appended to the yielded list (``module``: the port's or the JAX
+    package's ``renderer.render``)."""
+    real = module.calibrate_budgets
+    calibrated = []
+
+    def spy(*args, **kwargs):
+        calibrated.append(real(*args, **kwargs))
+        return calibrated[-1]
+
+    module.calibrate_budgets = spy
+    try:
+        yield calibrated
+    finally:
+        module.calibrate_budgets = real
+
+
+def budgets_of(rcfg) -> dict:
+    """The ``BUDGET_FIELDS`` of a render config."""
+    return {f: getattr(rcfg, f) for f in BUDGET_FIELDS}
+
+
 def run_cli(ckpt, scene_root, out_root, device="cuda",
             clusterings=tuple(CLI_CLUSTERINGS)) -> dict:
     """The render CLI on checkpoint ``ckpt`` (its run's ``config.json``
@@ -422,29 +447,18 @@ def run_cli(ckpt, scene_root, out_root, device="cuda",
     from ..cli import evaluate as evaluate_cli
     from ..cli import render as render_cli
     h, w = CLI_ARGS[1:3]
-    real = R.calibrate_budgets
     out = {}
     for name in clusterings:
         extra = CLI_CLUSTERINGS[name]
-        calibrated = []
-
-        def spy(*args, **kwargs):
-            calibrated.append(real(*args, **kwargs))
-            return calibrated[-1]
-
-        R.calibrate_budgets = spy
-        try:
+        with recorded_budgets() as calibrated:
             summary = render_cli.main(
                 ["--ckpt_path", str(ckpt), *CLI_ARGS, *extra, "--output_dir",
                  str(Path(out_root) / name), "--device", str(device)])
-        finally:
-            R.calibrate_budgets = real
         scores = evaluate_cli.main(
             ["--root_path", str(scene_root), "--exp_path",
              str(Path(out_root) / name), "--image_size", h, w])
         out[name] = {"summary": summary, "scores": scores,
-                     "budgets": {f: getattr(calibrated[-1], f)
-                                 for f in BUDGET_FIELDS},
+                     "budgets": budgets_of(calibrated[-1]),
                      "dir": Path(out_root) / name}
     return out
 
@@ -485,4 +499,438 @@ def check_cli(res: dict, golden):
             want = float(golden[f"{name}_{key}"])
             if not abs(float(run["scores"][key]) - want) <= 0.005:
                 bad.append(f"{name}: {key} {run['scores'][key]} vs {want}")
+    return bad, measured
+
+
+def _reference_linear(sd: dict, key: str, layer: dict, gen) -> None:
+    """A torch Linear's ``weight`` [out, in] (and ``bias``) at ``key`` in
+    the shapes of ``layer`` ({"w": [in, out], "b": [out]}): N(0, 1/in)."""
+    din, dout = np.shape(layer["w"])
+    sd[f"{key}.weight"] = torch.randn(dout, din, generator=gen) / din ** 0.5
+    if "b" in layer:
+        sd[f"{key}.bias"] = 0.1 * torch.randn(dout, generator=gen)
+
+
+def reference_like_state_dict(params, grid_dim, bbox_aabb, seed: int = 0) -> dict:
+    """A Lightning ``state_dict`` in the reference's layout whose import
+    (``io/torch_import.py::convert_state_dict``) has the shapes of the
+    parameter tree ``params`` (any leaves with a shape): plane factors
+    [1, C, H, W] and line factors [1, C, L, 1] N(0, 1) (about a tenth
+    of the space is opaque at r5b's widths), Sequential
+    MLPs with linears at indices 0, 2, 4, ... and the DINO heads' weight-normed
+    last layers, all drawn from a ``torch.Generator`` seeded with ``seed``;
+    ``renderer.grid_dim`` and ``renderer.bbox_aabb`` as buffers."""
+    gen = torch.Generator().manual_seed(seed)
+    sd: dict = {}
+    mlps = {"appearance_mlp": "render_appearance_mlp.mlp",
+            "semantic_mlp": "render_semantic_mlp.mlp",
+            "feature_mlp": "render_feature_mlp.mlp"}
+    for name in ("density", "appearance", "semantic", "instance", "feature"):
+        if name not in params:
+            continue
+        for i, plane in enumerate(params[name]["planes"]):
+            sd[f"model.{name}_plane.{i}"] = torch.randn(
+                1, *np.shape(plane), generator=gen)
+        for i, line in enumerate(params[name]["lines"]):
+            sd[f"model.{name}_line.{i}"] = torch.randn(
+                1, *np.shape(line), 1, generator=gen)
+        if f"{name}_basis" in params:
+            _reference_linear(sd, f"model.{name}_basis_mat",
+                              params[f"{name}_basis"], gen)
+    for name, key in mlps.items():
+        for i, layer in enumerate(params.get(name, {}).get("layers", ())):
+            _reference_linear(sd, f"model.{key}.{2 * i}", layer, gen)
+    for which, key in (("fast", "mlp"), ("slow", "slow_mlp")):
+        layers = params.get("instance_mlp", {}).get(which, {}).get("layers", ())
+        for i, layer in enumerate(layers):
+            _reference_linear(sd, f"model.render_instance_mlp.{key}.{2 * i}",
+                              layer, gen)
+    for which in params.get("proj", {}):
+        head = params["proj"][which]
+        prefix = f"model.proj_layer.{which}_proj"
+        _reference_linear(sd, f"{prefix}.mlp", head["mlp"], gen)
+        din, dout = np.shape(head["last_v"])
+        sd[f"{prefix}.last_layer.weight_v"] = torch.randn(dout, din,
+                                                          generator=gen)
+    sd["renderer.bbox_aabb"] = torch.tensor(np.asarray(bbox_aabb, np.float32))
+    sd["renderer.grid_dim"] = torch.tensor([int(g) for g in grid_dim])
+    return sd
+
+
+# ---------------------------------------------------------------------------
+# The tools of slice 3a on r5b's scene laid out as files (phase tools_r5b)
+# ---------------------------------------------------------------------------
+
+# find_bandwidth and extract_centroids render every 18th of the MOS scene's
+# 54 train frames (3 frames, 18,432 rays); the tools' run directory renders
+# every 4th test frame (its config's subsample_frames, which
+# visualize_bboxes reads), as CLI_ARGS does
+TOOLS_SUBSAMPLE = 18
+TOOLS_RUN_OVERRIDES = {"subsample_frames": 4}
+TOOLS_ARGS = ("--image_dim", "64", "96", "--chunk", str(PRODUCTION_CHUNK))
+BOX_RUN_METHODS = ("mbr", "aabb")
+# the legacy CLI's trajectory: a spherical orbit of 4 poses
+TRAJECTORY_FRAMES = 4
+# the edits render every 12th ray of the first test frame (512 rays) with
+# the mbr box of the largest volume, moved by this translation and rotation
+# about z (duplicate, manipulate)
+EDIT_RAY_STRIDE = 12
+EDIT_KINDS = ("delete", "extract", "duplicate", "manipulate")
+EDIT_TRANSLATION = (0.1, 0.05, 0.0)
+EDIT_ROTATION_DEG = 30.0
+# every 8th back-projected point of the mbr run, with its instance id
+BOX_POINT_STRIDE = 8
+IMPORT_SEED = 0
+# the bars: find_bandwidth PQ, the boxes (a share of the checkpoint AABB's
+# largest extent), the edits' maps, the legacy PNGs' shares of equal pixels
+TOOLS_PQ_TOL = 0.005
+BOX_TOL = 1e-2
+EDIT_TOL = 1e-4
+CENTROID_TOL = 3e-2
+LEGACY_SEMANTICS_AGREE = 0.999
+LEGACY_SURROGATE_AGREE = 0.99
+
+
+def edit_rotation() -> np.ndarray:
+    """The edits' rotation about z, float32."""
+    t = np.deg2rad(EDIT_ROTATION_DEG)
+    return np.array([[np.cos(t), -np.sin(t), 0.0], [np.sin(t), np.cos(t), 0.0],
+                     [0.0, 0.0, 1.0]], np.float32)
+
+
+def box_arrays(boxes: dict) -> dict:
+    """{id: {position, extent, orientation}} (``instance_bounding_boxes``,
+    or ``boxes.json`` read back) as arrays in increasing id order."""
+    boxes = {int(k): v for k, v in boxes.items()}
+    ids = sorted(boxes)
+    return {"ids": np.asarray(ids, np.int64),
+            **{f: np.asarray([boxes[k][f] for k in ids], np.float64).reshape(
+                len(ids), *((3, 3) if f == "orientation" else (3,)))
+               for f in ("position", "extent", "orientation")}}
+
+
+def boxes_match(got: dict, want: dict, tol: float) -> tuple:
+    """(whether the boxes ``got`` and ``want`` (``box_arrays``) match: as
+    many boxes, and paired up to a permutation of their ids by nearest
+    positions, every position and extent within ``tol``; the largest
+    difference)."""
+    from scipy.optimize import linear_sum_assignment
+    if len(got["ids"]) != len(want["ids"]):
+        return False, float("inf")
+    if not len(want["ids"]):
+        return True, 0.0
+    cost = np.linalg.norm(got["position"][:, None] - want["position"][None],
+                          axis=-1)
+    rows, cols = linear_sum_assignment(cost)
+    err = max(float(np.abs(got[f][rows] - want[f][cols]).max())
+              for f in ("position", "extent"))
+    return err <= tol, err
+
+
+def tools_run_dir(root, scene_root) -> Path:
+    """``cli_run_dir`` with ``TOOLS_RUN_OVERRIDES``."""
+    return cli_run_dir(root, scene_root, TOOLS_RUN_OVERRIDES)
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, time.perf_counter() - t0
+
+
+def run_tools(ckpt, scene_root, out_root, device="cuda") -> dict:
+    """The port's tools as a user runs them on the run of ``ckpt``
+    (``tools_run_dir``): find_bandwidth on every ``TOOLS_SUBSAMPLE``-th train
+    frame, extract_centroids at its best bandwidth, the render CLI with
+    those centroids (``CLI_ARGS``) scored by the evaluate CLI,
+    visualize_bboxes with each of ``BOX_RUN_METHODS``, and render_legacy on
+    every 4th test frame and on a ``TRAJECTORY_FRAMES``-pose orbit. Returns
+    per tool what it returned or wrote, its host seconds and its rays."""
+    from ..cli import evaluate as evaluate_cli
+    from ..cli import extract_centroids as extract_cli
+    from ..cli import find_bandwidth as bandwidth_cli
+    from ..cli import render as render_cli
+    from ..cli import render_legacy as legacy_cli
+    from ..cli import visualize_bboxes as bboxes_cli
+    out_root = Path(out_root)
+    common = ["--ckpt_path", str(ckpt), *TOOLS_ARGS, "--device", str(device)]
+    h, w = (int(x) for x in TOOLS_ARGS[1:3])
+    res = {}
+    bw, sec = _timed(lambda: bandwidth_cli.main(
+        common + ["--subsample", str(TOOLS_SUBSAMPLE), "--output_dir",
+                  str(out_root / "bandwidth")]))
+    feats = np.load(out_root / "bandwidth" / "all_thing_features_train.npy")
+    res["find_bandwidth"] = {"result": bw, "seconds": sec, "rays": len(feats),
+                             "thing_points": int((feats[:, 0] == -np.inf)
+                                                 .sum())}
+    pkl = out_root / "all_centroids.pkl"
+    cents, sec = _timed(lambda: extract_cli.main(
+        common + ["--subsample", str(TOOLS_SUBSAMPLE), "--bandwidth",
+                  repr(bw["best_value"]), "--output_path", str(pkl)]))
+    res["extract_centroids"] = {"centroids": cents, "seconds": sec,
+                                "rays": len(feats)}
+    with recorded_budgets() as calibrated:
+        summary, sec = _timed(lambda: render_cli.main(
+            ["--ckpt_path", str(ckpt), *CLI_ARGS, "--cached_centroids_path",
+             str(pkl), "--output_dir", str(out_root / "cached"), "--device",
+             str(device)]))
+    scores = evaluate_cli.main(["--root_path", str(scene_root), "--exp_path",
+                                str(out_root / "cached"), "--image_size",
+                                str(h), str(w)])
+    res["render_cached"] = {"summary": summary, "scores": scores,
+                            "budgets": budgets_of(calibrated[-1]),
+                            "dir": out_root / "cached", "seconds": sec,
+                            "rays": summary["num_frames"] * h * w}
+    for method in BOX_RUN_METHODS:
+        boxes, sec = _timed(lambda: bboxes_cli.main(
+            common + ["--method", method, "--output_dir",
+                      str(out_root / f"boxes_{method}")]))
+        # one OBJ vertex per rendered ray
+        n = len((out_root / f"boxes_{method}" / "points.obj").read_text()
+                .splitlines())
+        res[f"visualize_bboxes_{method}"] = {"boxes": box_arrays(boxes),
+                                             "seconds": sec, "rays": n}
+    for tag, extra in (("test", ["--subsample", str(TOOLS_RUN_OVERRIDES[
+            "subsample_frames"])]), ("trajectory", [
+            "--render_trajectory", "--trajectory_frames",
+            str(TRAJECTORY_FRAMES)])):
+        with recorded_budgets() as calibrated:
+            summary, sec = _timed(lambda: legacy_cli.main(
+                common + extra + ["--output_dir",
+                                  str(out_root / f"legacy_{tag}")]))
+        res[f"render_legacy_{tag}"] = {
+            "summary": summary, "budgets": budgets_of(calibrated[-1]),
+            "dir": out_root / f"legacy_{tag}", "seconds": sec,
+            "rays": summary["num_frames"] * h * w}
+    return res
+
+
+def tools_model(ckpt, device="cuda"):
+    """(params, mcfg, rcfg, state, scene's test frames) of the tools' run of
+    ``ckpt``, loaded as the render CLI loads it with ``CLI_ARGS``."""
+    from ..cli.render import run_config
+    from ..data import load_scene
+    cfg = run_config(ckpt, (int(CLI_ARGS[1]), int(CLI_ARGS[2])),
+                     int(CLI_ARGS[CLI_ARGS.index("--subsample") + 1]))
+    scene = load_scene(cfg, load_train=False)
+    params, mcfg, rcfg, state_r, _ = load_model_for_inference(
+        ckpt, cfg, scene.num_semantic_classes, white_bg=scene.white_bg,
+        device=device)
+    return params, mcfg, rcfg, state_r, scene.val_frames
+
+
+def edit_box(golden) -> dict:
+    return {f: golden[f"edit_{f}"] for f in ("extent", "position",
+                                             "orientation")}
+
+
+def run_edits(ckpt, golden, device="cuda", rows=None) -> dict:
+    """``renderer/editing.py::render_edited`` with each of ``EDIT_KINDS`` on
+    the golden's rays (``rows`` of them, default all) and box, on the
+    model of ``ckpt``. Returns per edit the maps (numpy), the host seconds,
+    and per ray the compositing weight of the samples inside the box and
+    outside it and the depth, in the edited and in the unedited field
+    (``edited_weights``)."""
+    from ..renderer.editing import (edited_weights, points_in_oriented_box,
+                                    render_edited)
+    dev = resolve_device(device)
+    params, mcfg, rcfg, state_r, _ = tools_model(ckpt, dev)
+    rays_np = golden["edit_rays"] if rows is None else golden["edit_rays"][rows]
+    rays = torch.from_numpy(np.ascontiguousarray(rays_np)).to(dev)
+    box = edit_box(golden)
+    move = {"translation": golden["edit_translation"],
+            "rotation": golden["edit_rotation"]}
+    with torch.no_grad():
+        xyz, _, _ = sample_points_in_box(rays, state_r, rcfg.n_samples)
+        inside = points_in_oriented_box(
+            xyz.reshape(-1, 3), box["extent"], box["position"],
+            box["orientation"]).reshape(xyz.shape[:2])
+
+    def masses(kind, kw):
+        with torch.no_grad():
+            _, _, w, z_vals = edited_weights(params, mcfg, rcfg, state_r,
+                                             rays, kind, box, **kw)
+        return tuple(t.cpu().numpy() for t in (
+            torch.where(inside, w, 0.0).sum(-1),
+            torch.where(inside, 0.0, w).sum(-1), (w * z_vals).sum(-1)))
+
+    base = masses(None, {})
+    out = {}
+    for kind in EDIT_KINDS:
+        kw = move if kind in ("duplicate", "manipulate") else {}
+        # timed to the maps on the host: the copy waits for the device
+        maps, sec = _timed(lambda: {k: v.cpu().numpy() for k, v in
+                                    render_edited(params, mcfg, rcfg, state_r,
+                                                  rays, kind, box, device=dev,
+                                                  **kw).items()})
+        out[kind] = {"maps": maps, "seconds": sec, "rays": len(rays_np),
+                     "mass": masses(kind, kw), "base_mass": base}
+    return out
+
+
+def check_edits(edits: dict, golden, rows=None):
+    """(failures, largest map difference per edit) of ``run_edits`` against
+    the golden: maps within ``EDIT_TOL`` (the semantics on rays whose
+    opacity reaches 1e-4: below, the 1e-8 of the softmax normalisation
+    competes with the weights). Delete leaves no weight inside the box and
+    extract none outside it, where the unedited field had some; delete
+    keeps the rays that miss the box as they were; duplicate and manipulate
+    move the depth of some ray."""
+    bad, measured = [], {}
+    for kind, run in edits.items():
+        (w_in, w_out, depth), (b_in, b_out, b_depth) = (run["mass"],
+                                                        run["base_mass"])
+        lit = w_in + w_out >= 1e-4
+        errs = {}
+        for key, value in run["maps"].items():
+            want = golden[f"edit_{kind}_{key}"]
+            want = want if rows is None else want[rows]
+            if key == "semantics":
+                value, want = value[lit], want[lit]
+            errs[key] = float(np.abs(value - want).max()) if value.size else 0.0
+            if not errs[key] <= EDIT_TOL:
+                bad.append(f"edit {kind}: {key} differs by {errs[key]}")
+        measured[kind] = errs
+        if kind == "delete":
+            misses = b_in == 0
+            if not ((b_in > 1e-3).any() and (w_in == 0).all()
+                    and (w_out[misses] == b_out[misses]).all()):
+                bad.append("edit delete: weight left inside the box, none "
+                           "there to delete, or a ray missing it changed")
+        if kind == "extract" and not ((b_out > 1e-3).any()
+                                      and (w_out == 0).all()):
+            bad.append("edit extract: weight left outside the box, or none "
+                       "there to remove")
+        if kind in ("duplicate", "manipulate") and not (
+                np.abs(depth - b_depth) > 1e-3).any():
+            bad.append(f"edit {kind}: no ray's depth changed")
+    return bad, measured
+
+
+def run_import(out_root, device="cuda") -> dict:
+    """A reference-layout Lightning checkpoint at r5b's widths, drawn from
+    ``IMPORT_SEED`` (``reference_like_state_dict``), saved with
+    ``torch.save``, converted by ``io/torch_import.py``'s CLI, loaded with
+    r5b's config and its first val frame rendered on the production path.
+    Returns the maps, the converter's summary and the seconds."""
+    from ..io.checkpoint import load_checkpoint
+    from ..io.torch_import import main as import_main
+    out_root = Path(out_root)
+    out_root.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    params, meta = load_checkpoint(R5B_CKPT)
+    sd = reference_like_state_dict(params, meta["grid_dim"],
+                                   meta["bbox_aabb"], IMPORT_SEED)
+    torch.save({"state_dict": sd, "epoch": 0, "global_step": 0},
+               out_root / "reference.ckpt")
+    info = import_main(["--ckpt_path", str(out_root / "reference.ckpt"),
+                        "--output_path", str(out_root / "imported.npz")])
+    import_seconds = time.perf_counter() - t0
+    cfg = load_config(R5B_CONFIG)
+    scene = e2e_scene(*R5B_SCENE)
+    model = load_model_for_inference(out_root / "imported.npz", cfg,
+                                     scene.num_semantic_classes,
+                                     device=device)[:4]
+    maps, sec = _timed(lambda: render_frames(
+        *model, scene.val_frames[:1], chunk=PRODUCTION_CHUNK, device=device))
+    return {"maps": maps[0], "info": info, "import_seconds": import_seconds,
+            "seconds": sec, "rays": len(scene.val_frames[0].rays)}
+
+
+def _agree(run_dir: Path, names, sub: str, want) -> float:
+    from ..utils.png import read_png
+    got = np.stack([read_png(run_dir / sub / f"{n}.png") for n in names])
+    return float((got == want).mean())
+
+
+def check_tools(res: dict, golden):
+    """What of ``run_tools``'s result ``res`` breaks the bars of the eager
+    JAX golden (``testdata/r5b_tools_golden.npz``). Returns (the failures,
+    the measured differences)."""
+    bad, measured = [], {}
+    # find_bandwidth: the reference's 50-value grid, PQ within 0.005, the
+    # same best value (or, where the golden's curve holds another value
+    # within 0.005 of its top, a best PQ within 0.005 of the golden's)
+    bw = res["find_bandwidth"]["result"]
+    values = np.asarray([v for v, _ in bw["curve"]])
+    pqs = np.asarray([p for _, p in bw["curve"]])
+    gv, gp = golden["bw_values"], golden["bw_pq"]
+    measured["bandwidth_curve"] = len(values)
+    if len(values) < len(gv):
+        bad.append(f"find_bandwidth: curve of {len(values)} values, the "
+                   f"golden's {len(gv)}")
+    elif len(values) != len(gv) or not np.allclose(values, gv, rtol=0,
+                                                   atol=1e-12):
+        bad.append("find_bandwidth: the curve's values differ")
+    else:
+        err = float(np.abs(pqs - gp).max())
+        measured["bandwidth_pq_max_abs_err"] = err
+        if err > TOOLS_PQ_TOL:
+            bad.append(f"find_bandwidth: PQ differs by {err}")
+    best = float(golden["bw_best_value"])
+    near_top = int((gp >= float(golden["bw_best_pq"]) - TOOLS_PQ_TOL).sum())
+    if bw["best_value"] != best and not (
+            near_top > 1 and abs(bw["best_pq"] - float(golden["bw_best_pq"]))
+            <= TOOLS_PQ_TOL):
+        bad.append(f"find_bandwidth: best value {bw['best_value']} vs "
+                   f"{best}")
+    # centroids: per class the same count, each within 3e-2 of its nearest
+    # golden centroid
+    cents = res["extract_centroids"]["centroids"]
+    classes = [int(c) for c in golden["centroid_classes"]]
+    if sorted(cents) != classes:
+        bad.append(f"extract_centroids: classes {sorted(cents)} vs {classes}")
+    for c in classes:
+        got, want = np.asarray(cents.get(c, np.zeros((0, 3)))), \
+            golden[f"centroids_{c}"]
+        if len(got) != len(want):
+            bad.append(f"extract_centroids: class {c} has {len(got)} "
+                       f"centroids, the golden {len(want)}")
+            continue
+        err = float(np.abs(got[:, None] - want[None]).max(-1).min(1).max())
+        measured[f"centroids_{c}_max_abs_err"] = err
+        if err > CENTROID_TOL:
+            bad.append(f"extract_centroids: class {c} off by {err}")
+    # the render CLI with the cached centroids
+    run = res["render_cached"]
+    for field, value in run["budgets"].items():
+        if value != golden[f"cached_budget_{field}"].item():
+            bad.append(f"render_cached: budget {field} {value} != "
+                       f"{golden[f'cached_budget_{field}'].item()}")
+    names = [str(n) for n in golden["test_names"]]
+    agree = _agree(run["dir"], names, "pred_semantics",
+                   golden["cached_pred_semantics"])
+    measured["cached_pred_semantics_agree"] = agree
+    if agree < 0.999:
+        bad.append(f"render_cached: pred_semantics agree on {agree:.5f}")
+    for key in CLI_METRICS:
+        want = float(golden[f"cached_{key}"])
+        if not abs(float(run["scores"][key]) - want) <= TOOLS_PQ_TOL:
+            bad.append(f"render_cached: {key} {run['scores'][key]} vs {want}")
+    # the boxes, up to a permutation of the ids
+    tol = BOX_TOL * float(golden["aabb_extent"])
+    for method in BOX_RUN_METHODS:
+        want = {f: golden[f"boxes_{method}_{f}"] for f in
+                ("ids", "position", "extent", "orientation")}
+        ok, err = boxes_match(res[f"visualize_bboxes_{method}"]["boxes"],
+                              want, tol)
+        measured[f"boxes_{method}_max_abs_err"] = err
+        if not ok:
+            bad.append(f"visualize_bboxes {method}: "
+                       f"{len(res[f'visualize_bboxes_{method}']['boxes']['ids'])}"
+                       f" boxes vs {len(want['ids'])}, largest difference "
+                       f"{err} (bar {tol})")
+    # the legacy PNGs
+    for tag in ("test", "trajectory"):
+        run = res[f"render_legacy_{tag}"]
+        names = [str(n) for n in golden[f"legacy_{tag}_names"]]
+        sem = _agree(run["dir"], names, "pred_semantics",
+                     golden[f"legacy_{tag}_semantics"])
+        sur = _agree(run["dir"], names, "pred_surrogateid",
+                     golden[f"legacy_{tag}_surrogate"])
+        measured[f"legacy_{tag}_semantics_agree"] = sem
+        measured[f"legacy_{tag}_surrogate_mismatch"] = 1.0 - sur
+        if sem < LEGACY_SEMANTICS_AGREE or sur < LEGACY_SURROGATE_AGREE:
+            bad.append(f"render_legacy {tag}: semantics agree on {sem:.5f}, "
+                       f"surrogate ids on {sur:.5f}")
     return bad, measured

@@ -5,12 +5,13 @@ epochs, where the grids change shape; the dense density is evaluated one
 x-slice at a time (the JAX package's ``lax.map``), so the intermediates stay
 small at r5b's final grid (2.08 M voxels). The voxel lattice is the JAX
 package's bit for bit, so the new AABB, which is the min and max of occupied
-lattice points, is too. Not ported (slice 3): ``get_instance_clusters`` and
-``export_instance_clusters``.
+lattice points, is too. ``get_instance_clusters`` and
+``export_instance_clusters`` label that lattice with the instance head, for
+debugging.
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -18,6 +19,7 @@ import torch.nn.functional as F
 
 from ..models import tensorf as tf
 from ..ops.grid_sample import lattice
+from ..utils.device import resolve_device
 from .render import RenderState, make_render_state
 
 
@@ -142,6 +144,65 @@ def dense_sigma(params, mcfg: tf.TensoRFConfig, state_r: RenderState,
     return _slices(params, mcfg, state_r,
                    tuple(int(g) * upsample for g in grid_dim),
                    lambda sigma: sigma)[0]
+
+
+def get_instance_clusters(params, mcfg: tf.TensoRFConfig, state_r: RenderState,
+                          grid_dim: Tuple[int, int, int], mode: str = "alpha",
+                          alpha_mask_threshold: float = 0.0075,
+                          max_samples: Optional[int] = None, seed: int = 0,
+                          device="cuda"):
+    """Dense-grid instance argmax -> labelled point cloud for debugging, on
+    ``device`` (where the parameters and ``state_r`` lie).
+
+    Returns (xyz [N,3], labels [N]) as numpy: with ``mode`` "alpha" the
+    lattice points whose alpha reaches ``alpha_mask_threshold`` (at most
+    2^18), else every lattice point (at most 2^16); a seeded numpy choice
+    keeps ``max_samples`` of them."""
+    dev = resolve_device(device)
+    if state_r.step_size.device != dev:
+        raise ValueError(f"render state is on {state_r.step_size.device}, "
+                         f"get_instance_clusters was asked for {dev}")
+    alpha, xyz = dense_alpha(params, mcfg, state_r, grid_dim)
+    xyz_flat = xyz.reshape(-1, 3)
+    alpha_flat = np.clip(alpha.reshape(-1).cpu().numpy(), 0, 1)
+    norm = (xyz_flat - state_r.bbox_aabb[0]) * state_r.inv_box_extent - 1.0
+    # chunked head evaluation over the dense lattice; the fast half in
+    # slow-fast mode
+    labels = []
+    with torch.no_grad():
+        for i in range(0, norm.shape[0], 262144):
+            feats = tf.render_instances(params, mcfg, norm[i:i + 262144])
+            labels.append(torch.argmax(feats[:, :mcfg.instance_out_channels],
+                                       dim=-1).cpu().numpy())
+    labels = np.concatenate(labels)
+    if mode == "alpha":
+        keep = alpha_flat >= alpha_mask_threshold
+        default_cap = 2 ** 18
+    else:
+        keep = np.ones_like(alpha_flat, bool)
+        default_cap = 2 ** 16
+    xyz_keep, labels_keep = xyz_flat.cpu().numpy()[keep], labels[keep]
+    cap = max_samples or default_cap
+    if len(xyz_keep) > cap:
+        sel = np.random.default_rng(seed).choice(len(xyz_keep), cap, False)
+        xyz_keep, labels_keep = xyz_keep[sel], labels_keep[sel]
+    return xyz_keep, labels_keep
+
+
+def export_instance_clusters(params, mcfg, state_r, grid_dim, output_dir,
+                             device="cuda"):
+    """Coloured OBJ point clouds of the clustered field: ``alpha.obj`` and
+    ``full.obj`` under ``output_dir``."""
+    from pathlib import Path
+    from ..utils.colors import DistinctColors
+    from ..utils.points import save_obj_points
+    out = Path(output_dir)
+    out.mkdir(parents=True, exist_ok=True)
+    dc = DistinctColors()
+    for mode in ("alpha", "full"):
+        xyz, labels = get_instance_clusters(params, mcfg, state_r, grid_dim,
+                                            mode, device=device)
+        save_obj_points(out / f"{mode}.obj", xyz, dc.apply(labels))
 
 
 def get_target_resolution(state_r: RenderState,

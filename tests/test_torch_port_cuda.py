@@ -544,3 +544,70 @@ def test_hdbscan_on_card_matches_cpu(cuda_device, seed, min_cluster_size):
     np.testing.assert_array_equal(
         hdbscan_labels(pts, min_cluster_size, device=cuda_device),
         hdbscan_labels(pts, min_cluster_size, device="cpu"))
+
+
+EDITS = ["delete", "extract", "duplicate", "manipulate"]
+
+
+def _rot_z(degrees):
+    t = np.deg2rad(degrees)
+    return np.array([[np.cos(t), -np.sin(t), 0.0], [np.sin(t), np.cos(t), 0.0],
+                     [0.0, 0.0, 1.0]], np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", EDITS)
+def test_render_edited_on_card_matches_cpu(cuda_device, kind):
+    """renderer/editing.py::render_edited of the slab field on the card
+    against the CPU, TF32 off: maps within 1e-4, the semantics on rays of
+    opacity 1e-4 and more (below, the softmax normalisation's 1e-8 competes
+    with the weights); the box takes weight from some ray."""
+    from contrastive_lift_tpu_torch.renderer import editing
+    from contrastive_lift_tpu_torch.renderer import render as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, mcfg, rcfg, state_r, params, _, batches, _ = _train_world("cpu")
+    rays = torch.from_numpy(batches[0]["rays"])
+    box = {"extent": [0.6, 0.5, 0.3], "position": [0.05, -0.1, 0.0],
+           "orientation": _rot_z(20.0)}
+    move = ({"translation": [0.3, -0.1, 0.0], "rotation": _rot_z(30.0)}
+            if kind in ("duplicate", "manipulate") else {})
+    want = editing.render_edited(params, mcfg, rcfg, state_r, rays, kind, box,
+                                 device="cpu", **move)
+    n0 = bi.launch_total(bi.sample_density_brick)
+    got = editing.render_edited(_to(params, cuda_device), mcfg, rcfg,
+                                R.RenderState(*(t.to(cuda_device)
+                                                for t in state_r)),
+                                rays, kind, box, device=cuda_device, **move)
+    assert bi.launch_total(bi.sample_density_brick) == n0  # VM factors only
+    weight = editing.edited_weights(params, mcfg, rcfg, state_r, rays, kind,
+                                    box, **move)[2]
+    base = editing.edited_weights(params, mcfg, rcfg, state_r, rays, None,
+                                  box)[2]
+    assert (weight - base).abs().sum(-1).max() > 1e-3
+    lit = weight.sum(-1) >= 1e-4
+    for key in ("rgb", "semantics", "instances", "depth"):
+        g, w = got[key].cpu(), want[key]
+        if key == "semantics":
+            g, w = g[lit], w[lit]
+        torch.testing.assert_close(g, w, rtol=0, atol=1e-4, msg=key)
+
+
+@pytest.mark.cuda
+def test_instance_clusters_on_card_match_cpu(cuda_device):
+    """renderer/occupancy.py::get_instance_clusters of the slab field on the
+    card against the CPU: the same lattice points, labels equal on 99.9% of
+    them (argmax of float32 heads summed in another order)."""
+    from contrastive_lift_tpu_torch.renderer import occupancy as occ
+    from contrastive_lift_tpu_torch.renderer import render as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _, mcfg, _, state_r, params, _, _, _ = _train_world("cpu")
+    want = occ.get_instance_clusters(params, mcfg, state_r, (24, 24, 24),
+                                     "full", device="cpu")
+    got = occ.get_instance_clusters(
+        _to(params, cuda_device), mcfg,
+        R.RenderState(*(t.to(cuda_device) for t in state_r)), (24, 24, 24),
+        "full", device=cuda_device)
+    np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
+    assert (got[1] == want[1]).mean() >= 0.999

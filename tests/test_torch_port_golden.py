@@ -55,6 +55,22 @@ budgets, the mean-shift run's ``pred_semantics`` and its
 3rd point of the HDBSCAN sample of the thing features with the labels
 scikit-learn gives it at a third of the CLI's min_cluster_size; add the
 argument ``cli``.
+
+``write_tools_golden()`` runs the JAX package's tools eagerly on the same
+scene laid out as files (``inference/fidelity.py::tools_run_dir``: r5b's
+config rendering every 4th test frame): ``cli/find_bandwidth.py`` on every
+18th train frame (the reference's 50-value MOS grid), ``cli/
+extract_centroids.py`` at its best bandwidth, ``cli/render.py`` with those
+centroids and ``cli/evaluate.py``, ``cli/visualize_bboxes.py`` with the mbr
+and the aabb method, ``cli/render_legacy.py`` on the test frames and on a
+4-pose orbit, and ``renderer/editing.py::render_edited`` with each edit on
+every 12th ray of the first test frame and the mbr box of the largest
+volume. It writes ``contrastive_lift_tpu_torch/testdata/
+r5b_tools_golden.npz``: the PQ curve and best value, the centroids, the
+cached-centroid render's budgets, predictions and scores, both box sets,
+every 8th back-projected point of the mbr run with its instance id and the
+JAX boxes of those points, the legacy PNGs and budgets, the edit rays, box,
+move and maps; add the argument ``tools``.
 """
 import subprocess
 import sys
@@ -78,6 +94,7 @@ PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
 TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
 STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
 CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
+TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
 RAY_STRIDE = 12
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 # a golden ray counts as moved by jit where a map differs by more than this
@@ -87,6 +104,7 @@ PRODUCTION_COMMAND = COMMAND + " production"
 TRAIN_COMMAND = COMMAND + " train"
 STAGE_COMMAND = COMMAND + " stage"
 CLI_COMMAND = COMMAND + " cli"
+TOOLS_COMMAND = COMMAND + " tools"
 # the training golden's sampler seed
 TRAIN_SEED = 0
 
@@ -512,6 +530,174 @@ def write_cli_golden(path=CLI_GOLDEN) -> dict:
     return out
 
 
+def write_tools_golden(path=TOOLS_GOLDEN) -> dict:
+    """The JAX package's tools on r5b's scene and checkpoint laid out as
+    files, eagerly; save the golden (see the module docstring)."""
+    import contextlib
+    import io
+    import json
+    import pickle
+    import tempfile
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from PIL import Image
+
+    from contrastive_lift_tpu.cli import evaluate as evaluate_cli
+    from contrastive_lift_tpu.cli import extract_centroids as extract_cli
+    from contrastive_lift_tpu.cli import find_bandwidth as bandwidth_cli
+    from contrastive_lift_tpu.cli import render as render_cli
+    from contrastive_lift_tpu.cli import render_legacy as legacy_cli
+    from contrastive_lift_tpu.cli import visualize_bboxes as bboxes_cli
+    from contrastive_lift_tpu.config import load_config as j_load_config
+    from contrastive_lift_tpu.data import load_scene as j_load_scene
+    from contrastive_lift_tpu.inference import bboxes as jbboxes
+    from contrastive_lift_tpu.inference import render as jrender
+    from contrastive_lift_tpu.inference.calibrate import sweep_values
+    from contrastive_lift_tpu.renderer import editing as jedit
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+
+    def pngs(folder, names):
+        return np.stack([np.array(Image.open(folder / f"{n}.png"))
+                         for n in names])
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp, jax.disable_jit():
+        tmp = Path(tmp)
+        scene_root = fid.write_mos_scene(fid.e2e_scene(*R5B_SCENE),
+                                         tmp / "scene")
+        ckpt = fid.tools_run_dir(tmp / "run", scene_root)
+        common = ["--ckpt_path", str(ckpt), *fid.TOOLS_ARGS]
+        h, w = (int(x) for x in fid.TOOLS_ARGS[1:3])
+        sub = ["--subsample", str(fid.TOOLS_SUBSAMPLE)]
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            bandwidth_cli.main(common + sub + ["--output_dir",
+                                               str(tmp / "bandwidth")])
+        text = buf.getvalue()
+        best = json.loads(text[text.rindex("\n{") + 1:])
+        curve = [(float(a.split(": ")[1]), float(b.split(": ")[1]))
+                 for a, b in (line.split(", ") for line in text.splitlines()
+                              if line.startswith("value: "))]
+        cfg = j_load_config(tmp / "run" / "config.json")
+        assert [v for v, _ in curve] == list(sweep_values(cfg, False, True))
+        feats = np.load(tmp / "bandwidth" / "all_thing_features_train.npy")
+        out.update(bw_values=np.asarray([v for v, _ in curve]),
+                   bw_pq=np.asarray([p for _, p in curve]),
+                   bw_best_value=best["best_value"],
+                   bw_best_pq=best["best_pq"],
+                   bw_thing_points=int((feats[:, 0] == -np.inf).sum()))
+
+        pkl = tmp / "all_centroids.pkl"
+        extract_cli.main(common + sub + ["--bandwidth",
+                                         repr(best["best_value"]),
+                                         "--output_path", str(pkl)])
+        with open(pkl, "rb") as f:
+            centroids = pickle.load(f)
+        out["centroid_classes"] = np.asarray(sorted(centroids), np.int64)
+        for c, v in centroids.items():
+            out[f"centroids_{c}"] = np.asarray(v, np.float32)
+
+        with fid.recorded_budgets(jrender.R) as calibrated:
+            render_cli.main(["--ckpt_path", str(ckpt), *fid.CLI_ARGS,
+                             "--cached_centroids_path", str(pkl),
+                             "--output_dir", str(tmp / "cached")])
+        evaluate_cli.main(["--root_path", str(scene_root), "--exp_path",
+                           str(tmp / "cached"), "--image_size", str(h),
+                           str(w)])
+        scores = dict(line.split(": ") for line in
+                      (tmp / "cached" / "metrics.txt").read_text()
+                      .splitlines())
+        for key, src in zip(fid.CLI_METRICS, ("iou", "pq", "sq", "rq")):
+            out[f"cached_{key}"] = float(scores[src])
+        out.update({f"cached_budget_{f}": v for f, v in
+                    fid.budgets_of(calibrated[-1]).items()})
+        names = sorted(p.stem for p in (tmp / "cached" / "pred_semantics")
+                       .iterdir())
+        out["test_names"] = np.asarray(names)
+        out["cached_pred_semantics"] = pngs(tmp / "cached" / "pred_semantics",
+                                            names)
+
+        real_boxes = bboxes_cli.instance_bounding_boxes
+        seen = []
+
+        def spy(points, ids, **kw):
+            seen.append((points, ids))
+            return real_boxes(points, ids, **kw)
+
+        bboxes_cli.instance_bounding_boxes = spy
+        try:
+            for method in fid.BOX_RUN_METHODS:
+                bboxes_cli.main(common + ["--method", method, "--output_dir",
+                                          str(tmp / f"boxes_{method}")])
+                boxes = json.loads((tmp / f"boxes_{method}" / "boxes.json")
+                                   .read_text())
+                for f, v in fid.box_arrays(boxes).items():
+                    out[f"boxes_{method}_{f}"] = v
+        finally:
+            bboxes_cli.instance_bounding_boxes = real_boxes
+        points, ids = seen[0]
+        out["box_points"] = np.asarray(points[::fid.BOX_POINT_STRIDE],
+                                       np.float32)
+        out["box_ids"] = np.asarray(ids[::fid.BOX_POINT_STRIDE], np.int16)
+        for method in fid.BOX_RUN_METHODS:
+            sub_boxes = jbboxes.instance_bounding_boxes(
+                out["box_points"], out["box_ids"].astype(np.int64),
+                method=method)
+            for f, v in fid.box_arrays(sub_boxes).items():
+                out[f"boxes_sub_{method}_{f}"] = v
+
+        for tag, extra in (("test", ["--subsample", str(
+                fid.TOOLS_RUN_OVERRIDES["subsample_frames"])]), (
+                "trajectory", ["--render_trajectory", "--trajectory_frames",
+                               str(fid.TRAJECTORY_FRAMES)])):
+            with fid.recorded_budgets(jrender.R) as calibrated:
+                legacy_cli.main(common + extra + ["--output_dir",
+                                                  str(tmp / f"legacy_{tag}")])
+            folder = tmp / f"legacy_{tag}"
+            names = sorted(p.stem for p in (folder / "pred_semantics")
+                           .iterdir())
+            out[f"legacy_{tag}_names"] = np.asarray(names)
+            out[f"legacy_{tag}_semantics"] = pngs(folder / "pred_semantics",
+                                                  names)
+            out[f"legacy_{tag}_surrogate"] = pngs(folder / "pred_surrogateid",
+                                                  names)
+            out.update({f"legacy_{tag}_budget_{f}": v for f, v in
+                        fid.budgets_of(calibrated[-1]).items()})
+
+        # the edits: the model as the render CLI loads it, the first test
+        # frame's rays, the mbr box of the largest volume
+        cfg.image_dim = (h, w)
+        cfg.subsample_frames = fid.TOOLS_RUN_OVERRIDES["subsample_frames"]
+        scene = j_load_scene(cfg, load_train=False)
+        params, mcfg, rcfg, state_r, meta = jrender.load_model_for_inference(
+            ckpt, cfg, scene.num_semantic_classes, white_bg=scene.white_bg)
+        rays = scene.val_frames[0].rays[::fid.EDIT_RAY_STRIDE].astype(
+            np.float32)
+        k = int(np.argmax(np.prod(out["boxes_mbr_extent"], axis=1)))
+        box = {f: out[f"boxes_mbr_{f}"][k].astype(np.float32)
+               for f in ("extent", "position", "orientation")}
+        out.update(edit_rays=rays, edit_translation=np.asarray(
+            fid.EDIT_TRANSLATION, np.float32), edit_rotation=fid.edit_rotation(),
+            **{f"edit_{f}": v for f, v in box.items()})
+        for kind in fid.EDIT_KINDS:
+            kw = ({"translation": out["edit_translation"],
+                   "rotation": out["edit_rotation"]}
+                  if kind in ("duplicate", "manipulate") else {})
+            maps = jedit.render_edited(params, mcfg, rcfg, state_r, rays,
+                                       kind, box, **kw)
+            for key in MAP_KEYS:
+                out[f"edit_{kind}_{key}"] = np.asarray(maps[key], np.float32)
+        aabb = np.asarray(meta["bbox_aabb"], np.float32)
+        out["aabb_extent"] = float((aabb[1] - aabb[0]).max())
+    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                            capture_output=True, text=True).stdout.strip()
+    out.update(jit=False, commit=commit, command=TOOLS_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
 def test_golden_file_layout():
     """The committed golden holds the maps at every 12th ray of the 4 val
     frames, finite, with the scores and its provenance."""
@@ -771,6 +957,126 @@ def test_port_hdbscan_matches_cli_golden():
         assert labels_match(labels, g["hdbscan_labels"])
 
 
+def test_tools_golden_layout():
+    """The committed tools golden: the 50-value PQ curve of 18,432 train
+    rays, the centroids, the cached-centroid render of the 4 test frames,
+    both box sets (as many boxes; ids, positions, extents, orientations),
+    every 8th back-projected point, the legacy PNGs of 4 test frames and 4
+    orbit poses, the 512 edit rays with their box, move and maps; finite;
+    under 300 KB."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    assert TOOLS_GOLDEN.stat().st_size < 300 << 10
+    with np.load(TOOLS_GOLDEN) as g:
+        assert g["bw_values"].shape == g["bw_pq"].shape == (50,)
+        assert float(g["bw_best_value"]) in g["bw_values"].tolist()
+        assert float(g["bw_best_pq"]) == g["bw_pq"].max() > 0
+        assert 10_000 <= int(g["bw_thing_points"]) <= 25_000
+        assert len(g["centroid_classes"]) >= 1
+        for c in g["centroid_classes"]:
+            assert g[f"centroids_{c}"].ndim == 2
+            assert g[f"centroids_{c}"].shape[1] == 3
+        for field in BUDGET_FIELDS:
+            for prefix in ("cached", "legacy_test", "legacy_trajectory"):
+                assert g[f"{prefix}_budget_{field}"].shape == ()
+        names = ["0054", "0058", "0062", "0066"]
+        assert list(g["test_names"]) == list(g["legacy_test_names"]) == names
+        assert g["cached_pred_semantics"].shape == (4, 64, 96)
+        assert g["cached_pred_semantics"].dtype == np.uint8
+        for key in fid.CLI_METRICS:
+            assert np.isfinite(float(g[f"cached_{key}"]))
+        for prefix in ("boxes_mbr", "boxes_aabb", "boxes_sub_mbr",
+                       "boxes_sub_aabb"):
+            n = len(g[f"{prefix}_ids"])
+            assert n >= 1
+            assert g[f"{prefix}_position"].shape == (n, 3)
+            assert g[f"{prefix}_extent"].shape == (n, 3)
+            assert g[f"{prefix}_orientation"].shape == (n, 3, 3)
+        assert len(g["boxes_mbr_ids"]) == len(g["boxes_aabb_ids"])
+        assert g["box_points"].shape == (4 * 64 * 96 // 8, 3)
+        assert g["box_ids"].shape == (4 * 64 * 96 // 8,)
+        for tag, n in (("test", 4), ("trajectory", 4)):
+            assert g[f"legacy_{tag}_semantics"].shape == (n, 64, 96)
+            assert g[f"legacy_{tag}_semantics"].dtype == np.uint8
+            assert g[f"legacy_{tag}_surrogate"].dtype == np.uint16
+        assert len(g["legacy_trajectory_names"]) == 4
+        assert g["edit_rays"].shape == (64 * 96 // 12, 8)
+        for kind in fid.EDIT_KINDS:
+            for key, width in (("rgb", 3), ("semantics", 2),
+                               ("instances", 6)):
+                assert g[f"edit_{kind}_{key}"].shape == (512, width)
+            assert g[f"edit_{kind}_depth"].shape == (512,)
+            assert all(np.isfinite(g[f"edit_{kind}_{k}"]).all()
+                       for k in MAP_KEYS)
+        np.testing.assert_array_equal(g["edit_rotation"], fid.edit_rotation())
+        assert float(g["aabb_extent"]) > 0
+        assert not bool(g["jit"])
+        assert len(str(g["commit"])) == 40
+        assert str(g["command"]) == TOOLS_COMMAND
+
+
+@pytest.fixture(scope="module")
+def tools_run(tmp_path_factory):
+    """r5b's scene in the MOS layout and the tools' run directory."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    tmp = tmp_path_factory.mktemp("tools")
+    scene_root = fid.write_mos_scene(fid.e2e_scene(*R5B_SCENE), tmp / "scene")
+    return tmp, scene_root, fid.tools_run_dir(tmp / "run", scene_root)
+
+
+def test_port_on_cpu_matches_tools_golden(tools_run):
+    """The cheap parts of the tools golden on the CPU: the port's boxes of
+    the golden's points (1e-6), the four edits on the first 128 of the
+    golden's rays (16 image rows, 48 of them crossing the box;
+    ``fidelity.check_edits``: maps within 1e-4, the opacity checks),
+    and the legacy render of the first test frame at the golden's budgets
+    (semantics on 99.9%, surrogate ids on 99% of the pixels)."""
+    import dataclasses
+
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.inference.bboxes import (
+        instance_bounding_boxes)
+    from contrastive_lift_tpu_torch.inference.render import render_frames
+    _, _, ckpt = tools_run
+    with np.load(TOOLS_GOLDEN) as g:
+        for method in fid.BOX_RUN_METHODS:
+            got = fid.box_arrays(instance_bounding_boxes(
+                g["box_points"], g["box_ids"].astype(np.int64), method=method))
+            for f, v in got.items():
+                np.testing.assert_allclose(v, g[f"boxes_sub_{method}_{f}"],
+                                           atol=1e-6, err_msg=f)
+        rows = slice(0, 128)
+        edits = fid.run_edits(ckpt, g, device="cpu", rows=rows)
+        bad, measured = fid.check_edits(edits, g, rows=rows)
+        assert bad == [], measured
+        params, mcfg, rcfg, state_r, frames = fid.tools_model(ckpt, "cpu")
+        rcfg = dataclasses.replace(rcfg, **{
+            f: g[f"legacy_test_budget_{f}"].item() for f in BUDGET_FIELDS})
+        out = render_frames(params, mcfg, rcfg, state_r, frames[:1],
+                            chunk=PRODUCTION_CHUNK, auto_budget=False,
+                            device="cpu")[0]
+        assert frames[0].name == str(g["legacy_test_names"][0])
+        sem = out["semantics"].argmax(-1).reshape(64, 96)
+        inst = out["instances"][:, :3].argmax(-1).reshape(64, 96)
+        assert (sem == g["legacy_test_semantics"][0]).mean() >= 0.999
+        assert (inst == g["legacy_test_surrogate"][0]).mean() >= 0.99
+
+
+@pytest.mark.slow
+def test_port_tools_on_cpu_match_tools_golden(tools_run):
+    """All of the tools phase on the CPU (``fidelity.run_tools``, the 50
+    mean-shift runs of the sweep included) within the golden's bars
+    (``fidelity.check_tools``), and the imported reference-layout checkpoint
+    renders finite maps."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    tmp, scene_root, ckpt = tools_run
+    res = fid.run_tools(ckpt, scene_root, tmp / "out", device="cpu")
+    with np.load(TOOLS_GOLDEN) as g:
+        bad, measured = fid.check_tools(res, g)
+    assert bad == [], measured
+    imported = fid.run_import(tmp / "import", device="cpu")
+    assert all(np.isfinite(v).all() for v in imported["maps"].values())
+
+
 @pytest.mark.slow
 def test_golden_regenerates(tmp_path):
     """write_golden() reproduces the committed file: maps within 1e-4 (CPU
@@ -804,7 +1110,10 @@ def test_production_golden_regenerates(tmp_path):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["cli"]:
+    if sys.argv[1:] == ["tools"]:
+        rec = write_tools_golden()
+        print({k: v for k, v in rec.items() if np.size(v) < 60})
+    elif sys.argv[1:] == ["cli"]:
         rec = write_cli_golden()
         print({k: v for k, v in rec.items() if k not in (
             "pred_semantics", "instance_features", "ray_index",
