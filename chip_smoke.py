@@ -163,7 +163,27 @@ Phases, each printing JSON lines with their seconds:
              density kernel launched in the phase. Prints each tool's host
              seconds and rays/s and the phase's kernel launches by row type
              beside the card's name and power limit;
-12. profile - only with ``--profile``: one more warm render of the 4 val
+12. ddp_r5b - data parallel (``parallel/mesh.py``) on the one card:
+             (a) the r5b golden step (``train/resume.py::golden_step``)
+             through the sharded step code on an explicit 1-rank NCCL group,
+             held to ``r5b_train_step_golden.npz`` at train_r5b's bars; (b)
+             r5b resumed with r5b's widths and batch sizes but 2 instance
+             images (r5b's 1 does not split over 2 ranks;
+             ``inference/fidelity.py::DDP_OVERRIDES``): 3 steps and the
+             production render of the 4 val frames, unsharded in this
+             process (twice: the card's own spread is printed), then on 2
+             gloo ranks spawned on the same card (``fidelity.ddp_r5b``),
+             held to the unsharded run (``fidelity.check_ddp``: budget,
+             losses rtol 4e-4, leaf sketches after the steps 5e-5 and of
+             their change 3.5e-2, replicas bitwise equal, render budgets
+             equal and maps within 1e-6, a float32 density-kernel launch on
+             every rank, the same PQ) and the sharded render to
+             ``r5b_production_golden.npz`` at main_production's bars. Prints
+             the seconds of a sharded step beside an unsharded one (two
+             ranks share one card: not a scaling number), the all-reduce
+             bytes a step and the milliseconds of one all-reduce of that
+             size, and each rank's kernel launches;
+13. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
@@ -176,8 +196,8 @@ Phases, each printing JSON lines with their seconds:
 Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
 on the render-chunk inputs, the fused form also on the production chunk,
 the loop chunk and the CLI chunk, with its launches in main_production, in
-train_loop_r5b's render, in cli_r5b and in tools_r5b) and,
-last, ``{"ok": true, "device": {...}}``.
+train_loop_r5b's render, in cli_r5b, in tools_r5b and, summed over the
+ranks, in ddp_r5b) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -1527,6 +1547,131 @@ def phase_tools_r5b():
     return launches
 
 
+# the seconds the 2 ranks of ddp_r5b may take, start-up included
+DDP_TIMEOUT = 300
+
+
+def phase_ddp_r5b():
+    """The data-parallel step and render: one NCCL rank held to the train
+    golden, two gloo ranks on the card held to one process and the
+    production golden. Returns each rank's density-kernel launches in its
+    sharded render."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.config import load_config
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.parallel import launch
+    from contrastive_lift_tpu_torch.parallel import mesh as pmesh
+    from contrastive_lift_tpu_torch.train import resume
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    t_phase = time.perf_counter()
+    scene = fid.e2e_scene(*fid.R5B_SCENE)
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    # (a) the golden step through the sharded code, one NCCL rank
+    with tempfile.TemporaryDirectory(dir=runs) as tmp, \
+            np.load(TRAIN_GOLDEN) as g:
+        gold = {k: g[k] for k in g.files}
+        mesh = pmesh.make_mesh(1, backend="nccl", device="cuda",
+                               init_method=f"file://{tmp}/store")
+        try:
+            res = resume.golden_step(fid.R5B_CKPT, load_config(fid.R5B_CONFIG),
+                                     scene, gold, device="cuda", mesh=mesh)
+            nccl_bytes = mesh.all_reduce_bytes
+        finally:
+            pmesh.close_mesh()
+    bad = resume.check_train_step(res, gold)
+    emit({"phase": "ddp_r5b", "part": "nccl_1_rank", "card": card,
+          "backend": "nccl", "ranks": 1,
+          "aux_head_topk": res["aux_head_topk"],
+          "metrics": {m: res["metrics"][m] for m in resume.TRAIN_METRICS},
+          "golden": {m: float(gold[f"metric_{m}"])
+                     for m in resume.TRAIN_METRICS},
+          "max_sketch_err": {
+              name: max(resume.sketch_error(a, b) for a, b in
+                        zip(res[f"sketch_{name}"], gold[f"sketch_{name}"]))
+              for name in resume.SKETCHES},
+          "all_reduce_bytes": nccl_bytes, "failures": bad})
+    if bad:
+        raise AssertionError(f"ddp_r5b: the 1-rank NCCL step differs from "
+                             f"the JAX golden: {bad[:10]}")
+    # (b) one process, then two gloo ranks sharing the card
+    torch.cuda.empty_cache()
+    one = fid.ddp_r5b("cuda")
+    # the card's own spread: the unsharded run again, held to the first
+    _, repeat = fid.check_ddp(fid.ddp_r5b("cuda"), one)
+    t0 = time.perf_counter()
+    two = launch.spawn(fid.ddp_r5b, 2, ("cuda", fid.DDP_STEPS, "gloo"),
+                       timeout=DDP_TIMEOUT)
+    spawn_s = time.perf_counter() - t0
+    bad, measured = fid.check_ddp(two, one)
+    cfg = fid.e2e_config(scene.image_dim)
+    scores = {}
+    for name, run in (("unsharded", one), ("sharded", two)):
+        onehot = fid.cluster_maps(run["maps"], scene, fid.BANDWIDTH,
+                                  cfg.max_instances, "cuda")
+        scores[name] = dict(zip(("pq_scene", "sq", "rq", "pq_masked"),
+                                fid.pq_for(run["maps"], onehot, scene,
+                                           cfg.max_instances)))
+    if scores["sharded"] != scores["unsharded"]:
+        bad.append(f"sharded PQ {scores['sharded']} vs unsharded "
+                   f"{scores['unsharded']}")
+    with np.load(PRODUCTION_GOLDEN) as g:
+        gold_budgets = {f: g[f"budget_{f}"].item() for f in fid.BUDGET_FIELDS}
+    budgets = {f: getattr(two["rcfg"], f) for f in fid.BUDGET_FIELDS}
+    if budgets != gold_budgets:
+        bad.append(f"sharded render budgets {budgets} vs the JAX golden's "
+                   f"{gold_budgets}")
+    map_err = map_errors(two, PRODUCTION_GOLDEN)
+    bad.extend(f"sharded {key} map differs from the JAX golden by {err}"
+               for key, err in map_err.items() if not err <= BF16_MAP_TOL)
+    gold_scores = golden(PRODUCTION_GOLDEN)[2]
+    bad.extend(f"sharded {key} {scores['sharded'][key]} vs the JAX golden's "
+               f"{gold_scores[key]}" for key in ("pq_scene", "pq_masked")
+               if not abs(scores["sharded"][key] - gold_scores[key])
+               <= PQ_TOL)
+    warm = slice(1, None)
+    emit({"phase": "ddp_r5b", "part": "gloo_2_ranks_one_card", "card": card,
+          "backend": "gloo", "ranks": two["ranks"],
+          "overrides": fid.DDP_OVERRIDES,
+          "aux_head_topk": two["aux_head_topk"],
+          "metrics": two["metrics"], "unsharded_metrics": one["metrics"],
+          **measured, "unsharded_repeat": repeat,
+          "replica_param_digests": two["param_digests"],
+          "replica_opt_digests": two["opt_digests"],
+          "step_seconds": two["step_seconds"],
+          "unsharded_step_seconds": one["step_seconds"],
+          "all_reduce_bytes_per_step": two["all_reduce_bytes"],
+          "all_reduce_ms": two["all_reduce_ms"],
+          "budgets": budgets, "golden_budgets": gold_budgets,
+          "map_max_abs_err_vs_golden": map_err, "scores": scores,
+          "golden": gold_scores,
+          "render_seconds": two["render_seconds"],
+          "unsharded_render_seconds": one["render_seconds"],
+          "launches_per_rank": two["launches"],
+          "unsharded_launches": one["launches"][0],
+          "spawn_seconds": spawn_s, "failures": bad,
+          "seconds": time.perf_counter() - t_phase})
+    per_rank = [r["sample_density_brick"].get("float32", 0)
+                for r in two["launches"]]
+    print(f"ddp_r5b: 2 gloo ranks sharing one card (not a scaling number): "
+          f"warm step {np.mean(two['step_seconds'][warm]):.4f} s against "
+          f"{np.mean(one['step_seconds'][warm]):.4f} s unsharded; "
+          f"{two['all_reduce_bytes'][-1]} all-reduce bytes a step, one "
+          f"all-reduce of them {two['all_reduce_ms']:.2f} ms; render "
+          f"{two['render_seconds']:.3f} s against "
+          f"{one['render_seconds']:.3f} s; fused float32 launches per rank "
+          f"{per_rank} on {card}", flush=True)
+    if bad:
+        raise AssertionError(f"ddp_r5b: {bad[:10]}")
+    return two["launches"]
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
     on the render-chunk inputs (the dense main path's own) and its launches
@@ -1534,7 +1679,8 @@ def kernel_line(records, launches):
     on the production chunk and its launches in ``main_production``, and
     with its time and error on the loop chunk and its launches in
     ``train_loop_r5b``'s render, and on the CLI chunk with its launches in
-    ``cli_r5b``."""
+    ``cli_r5b``; every entry with its launches in ``tools_r5b`` and, summed
+    over the ranks, in ``ddp_r5b``."""
     entries = []
     for kname in ("brick_interp", "sample_density_brick"):
         for dtype in DTYPES:
@@ -1562,6 +1708,8 @@ def kernel_line(records, launches):
                     .get(dtype, 0),
                     cli_r5b_launches=launches["cli"][kname].get(dtype, 0))
             entry["tools_r5b_launches"] = launches["tools"][kname].get(dtype, 0)
+            entry["ddp_r5b_launches"] = sum(rank[kname].get(dtype, 0)
+                                            for rank in launches["ddp"])
             loop = records.get((kname, "loop_chunk", dtype))
             if loop is not None:
                 entry.update(loop_chunk_ms=loop["ms"],
@@ -1619,6 +1767,7 @@ def main() -> int:
     launches["cli"], cli_records = phase_cli_r5b()
     records.update(cli_records)
     launches["tools"] = phase_tools_r5b()
+    launches["ddp"] = phase_ddp_r5b()
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

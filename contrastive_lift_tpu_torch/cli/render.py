@@ -11,17 +11,26 @@ HDBSCAN or cached centroids), and writes the reference's artifact tree
 (instance_features.npy, thing_features.npy, slow_features.npy,
 pred_semantics/, pred_surrogateid/, vis grids). ``--device`` defaults to
 ``cuda`` and raises without a card; ``--device cpu`` renders on the CPU.
+
+``--n_data_shards N`` (default: the run config's; 0 = every visible card)
+renders on N ranks, each rendering whole chunks (``parallel/mesh.py``), and
+rank 0 writes the same tree as one process. Under ``torchrun
+--nproc_per_node N`` each process is a rank; launched plainly, the CLI
+spawns its N ranks itself (gloo on the CPU, NCCL on cards).
 """
 from __future__ import annotations
 
 import argparse
 import json
+import sys
 from pathlib import Path
 
 from ..config import Config, load_config
 from ..data import load_scene
 from ..inference.render import (load_model_for_inference,
                                 render_checkpoint_outputs)
+from ..parallel import launch
+from ..parallel import mesh as pmesh
 from ..utils.device import resolve_device
 
 
@@ -64,8 +73,8 @@ def main(argv=None):
     parser.add_argument("--output_dir", type=str, default=None)
     parser.add_argument("--chunk", type=int, default=8192)
     parser.add_argument("--n_data_shards", type=int, default=None,
-                        help="devices for sharded rendering (default: the run "
-                        "config's n_data_shards); only 1 is ported")
+                        help="devices for sharded rendering (0=all; default: "
+                        "the run config's n_data_shards)")
     parser.add_argument("--no-term", dest="term", action="store_false",
                         default=True,
                         help="disable two-phase early-termination fine "
@@ -89,6 +98,7 @@ def main(argv=None):
                         "L2-only flat grouped-bit selection)")
     parser.add_argument("--device", type=str, default="cuda",
                         help="torch device to render on (default: cuda)")
+    argv = sys.argv[1:] if argv is None else list(argv)
     args = parser.parse_args(argv)
     device = resolve_device(args.device)  # no card: raise before any work
 
@@ -96,10 +106,13 @@ def main(argv=None):
     cfg = run_config(ckpt, args.image_dim, args.subsample)
     n_shards = (args.n_data_shards if args.n_data_shards is not None
                 else cfg.n_data_shards)
-    if n_shards != 1:
-        raise NotImplementedError(
-            f"--n_data_shards {n_shards}: sharded rendering is not ported "
-            "(ROADMAP queue 1, item 12)")
+    world = launch.data_shards(n_shards, device)
+    mesh = None
+    if world > 1 and not pmesh.launched():
+        return launch.spawn(main, world, (argv,))
+    if world > 1:
+        mesh = pmesh.make_mesh(world, cfg.data_axis, device=device)
+        device = mesh.device
 
     scene = load_scene(cfg, load_train=False)
     params, mcfg, rcfg, state_r, _ = load_model_for_inference(
@@ -120,8 +133,9 @@ def main(argv=None):
         cached_centroids_path=args.cached_centroids_path, chunk=args.chunk,
         termination=args.term, head_term=args.head_term,
         l2_only=args.l2_only, tail_complete=args.tail_complete,
-        device=device)
-    print(json.dumps(summary, indent=2))
+        mesh=mesh, device=device)
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(summary, indent=2))
     return summary
 
 

@@ -8,6 +8,12 @@ The experiment directory (config.json, metrics.jsonl, code.zip, images/,
 checkpoints/) has the JAX package's layout; its ``checkpoints/last.npz``
 loads in either package. ``--device`` defaults to ``cuda`` and raises
 without a card; ``--device cpu`` trains on the CPU.
+
+``n_data_shards=N`` (0 = every visible card) trains on N data-parallel ranks
+(``train/loop.py``). Under ``torchrun --nproc_per_node N`` each process is a
+rank and rank 0 names the run; launched plainly, the CLI names the run and
+spawns its N ranks itself (gloo on the CPU, NCCL on cards). Either way one
+run directory is written, by rank 0.
 """
 from __future__ import annotations
 
@@ -19,6 +25,8 @@ from pathlib import Path
 
 from ..config import load_config, parse_cli_overrides
 from ..data import load_scene
+from ..parallel import launch
+from ..parallel import mesh as pmesh
 from ..train.loop import Trainer
 from ..utils.device import resolve_device
 
@@ -45,16 +53,30 @@ def main(argv=None):
     cfg = cfg.resolve_epochs()
     name = {"panopli": "PanopLi", "mos": "MOS",
             "synthetic": "Synthetic"}.get(cfg.dataset_class, cfg.dataset_class)
-    exp_name = generate_experiment_name(name, cfg)
-    run_dir = Path(args.runs_dir) / exp_name
-    print(f"experiment: {exp_name}")
+    run_dir = Path(args.runs_dir) / generate_experiment_name(name, cfg)
+    world = launch.data_shards(cfg.n_data_shards, device)
+    if world > 1 and not pmesh.launched():
+        return launch.spawn(train, world, (cfg, run_dir, args.device))
+    if world > 1:
+        # torchrun: every rank named a run; rank 0's name is the run's
+        mesh = pmesh.make_mesh(world, cfg.data_axis, device=device)
+        run_dir = pmesh.broadcast_object(mesh, run_dir)
+    return train(cfg, run_dir, device)
 
+
+def train(cfg, run_dir: Path, device) -> Path:
+    """Train ``cfg`` into ``run_dir`` on ``device``, as one rank of a
+    data-parallel run when ``cfg.n_data_shards`` asks for one."""
     scene = load_scene(cfg)
     trainer = Trainer(cfg, scene, run_dir, device=device)
+    if trainer.writer:
+        print(f"experiment: {run_dir.name}")
     if cfg.resume:
         trainer.restore(cfg.resume)
     trainer.fit()
-    print(f"done; artifacts in {run_dir}")
+    trainer.logger.close()
+    if trainer.writer:
+        print(f"done; artifacts in {run_dir}")
     return run_dir
 
 

@@ -6,6 +6,11 @@ built on first use with ``g++ -O3 -fopenmp`` from the repository's
 when the source changes); ``native/`` itself is only read. Without a
 compiler every entry point computes the same values with numpy, as in the
 JAX package.
+
+The library's OpenMP runtime is the one torch's CPU operations run on, so
+the thread count it sets would become torch's intra-op thread count as
+well (the JAX package has no such coupling). Each native call therefore
+runs on ``set_num_threads``' count and puts torch's count back after it.
 """
 from __future__ import annotations
 
@@ -27,14 +32,26 @@ _pending_threads: Optional[int] = None
 
 
 def set_num_threads(n: int) -> None:
-    """Cap the OpenMP threads of the native ray pool (<= 0 keeps the
-    OpenMP default)."""
+    """Cap the OpenMP threads of the native ray pool's calls (<= 0 keeps
+    the OpenMP default)."""
     global _pending_threads
     if n <= 0:
         return
     _pending_threads = int(n)
-    if _lib is not None:
-        _lib.set_num_threads(int(n))
+
+
+def _call(fn, *args) -> None:
+    """``fn(*args)`` on the ray pool's threads, torch's count restored."""
+    if _pending_threads is None:
+        fn(*args)
+        return
+    import torch
+    threads = torch.get_num_threads()
+    _lib.set_num_threads(_pending_threads)
+    try:
+        fn(*args)
+    finally:
+        torch.set_num_threads(threads)
 
 
 def library_path() -> Path:
@@ -77,8 +94,6 @@ def _load() -> Optional[ctypes.CDLL]:
                                        ctypes.c_uint64, i64p]
         lib.set_num_threads.argtypes = [ctypes.c_int]
         _lib = lib
-        if _pending_threads is not None:
-            lib.set_num_threads(_pending_threads)
     except Exception as exc:  # no compiler / unsupported platform
         print(f"[native] raypool unavailable ({exc}); using numpy")
         _lib = None
@@ -95,10 +110,10 @@ def build_rays(height: int, width: int, intrinsics: np.ndarray,
     lib = _load()
     if lib is not None:
         out = np.empty((height * width, 8), np.float32)
-        lib.build_rays(height, width,
-                       np.ascontiguousarray(intrinsics[:3, :3], np.float32),
-                       np.ascontiguousarray(cam2world[:4, :4], np.float32),
-                       np.float32(near), out)
+        _call(lib.build_rays, height, width,
+              np.ascontiguousarray(intrinsics[:3, :3], np.float32),
+              np.ascontiguousarray(cam2world[:4, :4], np.float32),
+              np.float32(near), out)
         return out
     from ..utils import geometry as geo
     dirs = geo.ray_directions_from_intrinsics(height, width, intrinsics)
@@ -112,14 +127,12 @@ def gather_rows(src: np.ndarray, idx: np.ndarray) -> np.ndarray:
     src2 = src.reshape(len(src), -1)
     if lib is not None and src2.flags.c_contiguous:
         out = np.empty((len(idx), src2.shape[1]), src2.dtype)
-        if src2.dtype == np.float32:
-            lib.gather_rows_f32(src2, idx, len(idx), src2.shape[1], out)
-        elif src2.dtype == np.int32:
-            lib.gather_rows_i32(src2, idx, len(idx), src2.shape[1], out)
-        elif src2.dtype == np.uint8:
-            lib.gather_rows_u8(src2, idx, len(idx), src2.shape[1], out)
-        else:
+        fns = {np.dtype(np.float32): lib.gather_rows_f32,
+               np.dtype(np.int32): lib.gather_rows_i32,
+               np.dtype(np.uint8): lib.gather_rows_u8}
+        if src2.dtype not in fns:
             return src[idx]
+        _call(fns[src2.dtype], src2, idx, len(idx), src2.shape[1], out)
         return out.reshape((len(idx),) + src.shape[1:])
     return src[idx]
 
@@ -128,6 +141,6 @@ def sample_indices(n_pool: int, batch: int, seed: int) -> np.ndarray:
     lib = _load()
     if lib is not None:
         out = np.empty(batch, np.int64)
-        lib.sample_indices(n_pool, batch, np.uint64(seed), out)
+        _call(lib.sample_indices, n_pool, batch, np.uint64(seed), out)
         return out
     return np.random.default_rng(seed).integers(0, n_pool, batch)

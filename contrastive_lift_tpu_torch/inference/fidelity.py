@@ -934,3 +934,186 @@ def check_tools(res: dict, golden):
             bad.append(f"render_legacy {tag}: semantics agree on {sem:.5f}, "
                        f"surrogate ids on {sur:.5f}")
     return bad, measured
+
+
+# ---------------------------------------------------------------------------
+# the data-parallel phase (ddp_r5b)
+# ---------------------------------------------------------------------------
+
+# r5b's widths and batch sizes, but for its instance images, which must
+# split over the ranks (r5b's one image cannot; the JAX Trainer refuses it)
+DDP_OVERRIDES = {"batch_size_contrastive": 2}
+DDP_STEPS = 3
+DDP_BATCH_SEED = 1
+# the sharded render computes each chunk as the unsharded one does
+DDP_MAP_TOL = 1e-6
+# Sharded against unsharded on the card, 3 steps: every main-phase metric
+# of two unsharded runs is bitwise equal, while half batches give other
+# sums (metrics 1.2e-4 relative, sketches after the steps 1.2e-5, of the
+# change 2.3e-2). Counting TV on every rank moves them to 7.9e-4, 1.7e-4
+# and 4.2e-2; the bars lie between (PERF.md, ddp_r5b).
+DDP_METRIC_RTOL = 4e-4
+DDP_SKETCH_TOL = {"sketch_after": 5e-5, "sketch_delta": 3.5e-2}
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def ddp_r5b(device="cuda", steps: int = DDP_STEPS, backend=None) -> dict:
+    """What each rank of the data-parallel check runs, and one process for
+    the unsharded run it is held to: r5b resumed from ``final.npz`` with its
+    optimizer state and ``DDP_OVERRIDES``, the head budget calibrated (and
+    agreed), ``steps`` steps on the batches of ``DDP_BATCH_SEED``'s sampler
+    stream (each rank keeping its rows) with the draws of a generator on the
+    device seeded by the config's seed, TF32 off; then ``render_frames`` of
+    r5b's val frames at the production point in 4,096-ray chunks. On a
+    rank of a launch the step and the render are sharded (``backend``: the
+    group's, e.g. "gloo" for ranks sharing one card). Returns the metrics
+    and host seconds of each step, the all-reduce bytes of each step and
+    the milliseconds of one all-reduce of that many bytes, the sketches of
+    every parameter leaf after the steps and of its change, every rank's
+    digest of its parameters and optimizer state, and the render's maps,
+    config, guardrail maxima, seconds and every rank's density-kernel
+    launches."""
+    from ..ops import brick_interp as bi
+    from ..parallel import mesh as pmesh
+    from ..parallel.dryrun import replica_digests
+    from ..train import resume
+    from ..train.loop import calibrate_aux_topk
+    from ..train.step import make_train_step
+    from ..utils.tree import tree_leaves_with_path
+
+    mesh = (pmesh.make_mesh(device=device, backend=backend)
+            if pmesh.launched() else None)
+    dev = resolve_device(device) if mesh is None else mesh.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    scene = e2e_scene(*R5B_SCENE)
+    cfg = load_config(R5B_CONFIG, dict(DDP_OVERRIDES))
+    setup = resume.restore_training(R5B_CKPT, cfg, scene, dev)
+    state = setup.state
+    if mesh is not None:
+        pmesh.replicate_tree(mesh, state)
+    k = calibrate_aux_topk(cfg, state.params, setup.mcfg, setup.rcfg,
+                           setup.state_r, setup.gates, setup.epoch,
+                           setup.samplers[0])
+    if mesh is not None:
+        k = pmesh.agree(mesh, k, "the head budget")
+    step = make_train_step(cfg, setup.mcfg, setup.rcfg, setup.gates,
+                           setup.class_weights, state.params,
+                           aux_head_topk=k, mesh=mesh)
+    before = {p: t.clone() for p, t in tree_leaves_with_path(state.params)}
+    rng = np.random.default_rng(DDP_BATCH_SEED)
+    gen = torch.Generator(device=dev).manual_seed(int(cfg.seed or 0))
+    metrics, seconds, reduced = [], [], []
+    for _ in range(steps):
+        batches = resume.step_batches(setup, rng)
+        if mesh is not None:
+            batches = [None if b is None else pmesh.shard_main_batch(mesh, b)
+                       for b in batches]
+        sent = mesh.all_reduce_bytes if mesh is not None else 0
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, m = step(state, setup.state_r, *batches, gen, setup.lr_scale,
+                        setup.lambda_dist_reg)
+        _sync(dev)
+        seconds.append(time.perf_counter() - t0)
+        metrics.append({name: float(v) for name, v in m.items()})
+        reduced.append((mesh.all_reduce_bytes - sent)
+                       if mesh is not None else 0)
+    after = tree_leaves_with_path(state.params)
+    sketches = [resume.leaf_sketches(i, t, t - before[p])
+                for i, (p, t) in enumerate(after)]
+    allreduce_ms = None
+    if mesh is not None:
+        buf = torch.zeros(reduced[-1] // 4, device=dev)
+        pmesh.all_reduce_(mesh, buf)
+        _sync(dev)
+        t0 = time.perf_counter()
+        for _ in range(5):
+            pmesh.all_reduce_(mesh, buf)
+        _sync(dev)
+        allreduce_ms = (time.perf_counter() - t0) / 5 * 1e3
+
+    _, params, mcfg, rcfg, state_r, _ = load_production(R5B_CKPT, scene, dev)
+    bi.reset_launches()
+    t0 = time.perf_counter()
+    rep = render_frames_report(params, mcfg, rcfg, state_r, scene.val_frames,
+                               chunk=PRODUCTION_CHUNK, mesh=mesh, device=dev)
+    _sync(dev)
+    render_s = time.perf_counter() - t0
+    launches = [{w.__name__: dict(w.dtype_launches) for w in bi.KERNELS}]
+    if mesh is not None:
+        launches = [None] * mesh.size
+        torch.distributed.all_gather_object(
+            launches, {w.__name__: dict(w.dtype_launches) for w in bi.KERNELS},
+            group=mesh.host_group)
+    return {"aux_head_topk": k, "metrics": metrics, "step_seconds": seconds,
+            "all_reduce_bytes": reduced, "all_reduce_ms": allreduce_ms,
+            "ranks": 1 if mesh is None else mesh.size,
+            "leaf_paths": [str(p) for p, _ in after],
+            "sketch_after": np.stack([s[0] for s in sketches]),
+            "sketch_delta": np.stack([s[1] for s in sketches]),
+            "param_digests": replica_digests(mesh, state.params),
+            "opt_digests": replica_digests(
+                mesh, (state.opt_state_main, state.opt_state_inst)),
+            "maps": rep.maps, "rcfg": rep.rcfg,
+            "budget_tail": rep.budget_tail, "head_tail": rep.head_tail,
+            "render_seconds": render_s, "launches": launches}
+
+
+def check_ddp(sharded: dict, unsharded: dict) -> tuple:
+    """(failures, measured) of a sharded ``ddp_r5b`` run against the
+    unsharded one: the head budget equal; every metric of every step within
+    ``DDP_METRIC_RTOL`` (guardrails also 1e-6 absolute); each leaf's
+    sketches after the steps and of its change within ``DDP_SKETCH_TOL``;
+    the replicas' parameters and optimizer state bitwise equal; the
+    render's budgets equal and maps within ``DDP_MAP_TOL``; a float32
+    density-kernel launch on every rank."""
+    from ..train import resume
+    bad, measured = [], {}
+    if sharded["aux_head_topk"] != unsharded["aux_head_topk"]:
+        bad.append(f"aux_head_topk {sharded['aux_head_topk']} != "
+                   f"{unsharded['aux_head_topk']}")
+    rel = {}
+    for i, (got, want) in enumerate(zip(sharded["metrics"],
+                                        unsharded["metrics"])):
+        if set(got) != set(want):
+            bad.append(f"step {i}: metrics {sorted(got)} vs {sorted(want)}")
+        for name, value in want.items():
+            atol = resume.GUARDRAIL_ATOL if name.endswith("_tail") else 0.0
+            err = abs(got.get(name, np.nan) - value)
+            rel[name] = max(rel.get(name, 0.0),
+                            err / max(abs(value), 1e-30))
+            if not err <= DDP_METRIC_RTOL * abs(value) + atol:
+                bad.append(f"step {i} {name} {got.get(name)} vs {value}")
+    measured["metric_max_rel_err"] = max(
+        v for k, v in rel.items() if not k.endswith("_tail"))
+    measured["metric_rel_err"] = rel
+    for name in ("sketch_after", "sketch_delta"):
+        errs = [resume.sketch_error(a, b) for a, b in
+                zip(sharded[name], unsharded[name])]
+        measured[f"{name}_max_err"] = max(errs)
+        bad.extend(f"{name} {p} error {e:.3g}" for p, e in
+                   zip(sharded["leaf_paths"], errs)
+                   if not e <= DDP_SKETCH_TOL[name])
+    for key in ("param_digests", "opt_digests"):
+        if len(set(sharded[key])) != 1:
+            bad.append(f"the ranks' {key} differ: the replicas drifted")
+    got = {f: getattr(sharded["rcfg"], f) for f in BUDGET_FIELDS}
+    want = {f: getattr(unsharded["rcfg"], f) for f in BUDGET_FIELDS}
+    if got != want:
+        bad.append(f"sharded render budgets {got} vs unsharded {want}")
+    map_err = max(float(np.abs(a[key] - b[key]).max())
+                  for a, b in zip(sharded["maps"], unsharded["maps"])
+                  for key in ("rgb", "semantics", "instances", "depth"))
+    measured["render_max_abs_err"] = map_err
+    if not map_err <= DDP_MAP_TOL:
+        bad.append(f"sharded render maps differ by {map_err}")
+    for rank, counts in enumerate(sharded["launches"]):
+        if counts["sample_density_brick"].get("float32", 0) < 1:
+            bad.append(f"rank {rank} never launched the float32 "
+                       "sample_density_brick kernel")
+    return bad, measured

@@ -12,6 +12,16 @@ tree: ``instance_features.npy``, ``thing_features.npy``,
 ``slow_features.npy``, ``pred_semantics/*.png`` (uint8),
 ``pred_surrogateid/*.png`` (uint16) and the visualisation grids, the PNGs
 through ``utils/png.py`` where the JAX package uses PIL.
+
+With a ``mesh`` (``parallel/mesh.py``) every rank builds the grids, rank 0
+calibrates the budgets and broadcasts its render config, and rank r renders
+the whole chunks r, r + W, ... of the frames' chunks at the same chunk size,
+so each chunk is computed exactly as in the unsharded render (the
+termination survivors are picked among a chunk's rays). Each frame's maps
+go to the host once its chunks are rendered and are gathered through the
+host, in frame order, on every rank (``render_checkpoint_outputs``: on rank
+0 alone, which clusters and writes the artifacts); the guardrail maxima are
+all-reduced.
 """
 from __future__ import annotations
 
@@ -31,6 +41,7 @@ from ..factory import make_model_config, make_render_config
 from ..io.checkpoint import load_checkpoint
 from ..io.convert import params_from_numpy
 from ..ops.fused_grid import FusedGrids, build_render_grids
+from ..parallel import mesh as pmesh
 from ..renderer import render as R
 from ..utils import geometry as geo
 from ..utils.device import resolve_device
@@ -80,13 +91,14 @@ def prepare_render(params, mcfg, rcfg, state_r, frames: List[FrameData],
                    auto_budget: bool = True, termination: bool = True,
                    head_term: bool = True, l2_only: bool = True,
                    head_tail_eps: float = 2e-3, tail_complete: bool | None = None,
-                   use_fused: bool = True):
+                   use_fused: bool = True, mesh=None):
     """(render config, grids) that ``render_frames`` renders with, in the
     JAX package's order: the grids (None without ``use_fused``: the render
     samples the VM factors directly, without skipping); the tail-completion
     default (on wherever ``head_topk`` is); L2-only selection; the occupancy
     group sizes; and, with ``auto_budget``, budgets calibrated on a probe of
-    up to 8 frames (4,096 rays)."""
+    up to 8 frames (4,096 rays), on a ``mesh`` by rank 0 alone and
+    broadcast."""
     R.check_ported(rcfg)
     if not use_fused:
         if tail_complete is None:
@@ -106,14 +118,17 @@ def prepare_render(params, mcfg, rcfg, state_r, frames: List[FrameData],
         rcfg = R.occ_grouping_for(rcfg, state_r)
     if (auto_budget and frames and rcfg.coarse_stride is not None
             and fused.coarse_occ is not None):
-        sel = frames[::max(1, len(frames) // 8)][:8]
-        per = max(1, 4096 // len(sel))
-        probe = np.concatenate(
-            [f.rays[::max(1, len(f.rays) // per)][:per] for f in sel])
-        rcfg = R.calibrate_budgets(mcfg, rcfg, state_r, probe, fused,
-                                   termination=termination,
-                                   head_term=head_term,
-                                   head_tail_eps=head_tail_eps)
+        if mesh is None or mesh.rank == 0:
+            sel = frames[::max(1, len(frames) // 8)][:8]
+            per = max(1, 4096 // len(sel))
+            probe = np.concatenate(
+                [f.rays[::max(1, len(f.rays) // per)][:per] for f in sel])
+            rcfg = R.calibrate_budgets(mcfg, rcfg, state_r, probe, fused,
+                                       termination=termination,
+                                       head_term=head_term,
+                                       head_tail_eps=head_tail_eps)
+        if mesh is not None:
+            rcfg = pmesh.broadcast_object(mesh, rcfg)
     return rcfg, fused
 
 
@@ -172,49 +187,74 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
                          head_term: bool = True, dispatch_group: int = 4,
                          l2_only: bool = True, head_tail_eps: float = 2e-3,
                          tail_complete: bool | None = None,
-                         device="cuda") -> RenderReport:
+                         device="cuda", maps_on_every_rank: bool = True
+                         ) -> RenderReport:
     """``render_frames``, returning with the maps the render config the
-    chunks used (calibrated budgets included) and the guardrail maxima."""
-    if mesh is not None:
-        raise NotImplementedError("render_frames: mesh (multi-device "
-                                  "render) is not ported")
+    chunks used (calibrated budgets included) and the guardrail maxima. On
+    a ``mesh`` without ``maps_on_every_rank`` only rank 0 gets the maps
+    (the others' are None)."""
+    if mesh is not None and chunk % mesh.size:
+        raise ValueError(f"chunk={chunk} must divide mesh size {mesh.size}")
     if bake_heads:
         raise NotImplementedError("render_frames: bake_heads is not ported")
     dev = resolve_device(device)
     if state_r.step_size.device != dev:
         raise ValueError(f"render state is on {state_r.step_size.device}, "
                          f"render_frames was asked for {dev}")
-    results = []
-    tails = []
+    first = np.cumsum([0] + [-(-len(f.rays) // chunk) for f in frames])
+    # the port's chunk-to-rank assignment: rank r renders the whole chunks
+    # r, r + W, ... of all the frames' chunks (without a mesh, every chunk)
+    mine = set(range(first[-1]) if mesh is None
+               else pmesh.group_batch_sharding(mesh, int(first[-1])))
+    outs, tails = {}, []
     with torch.no_grad():
         rcfg, fused = prepare_render(
             params, mcfg, rcfg, state_r, frames, auto_budget=auto_budget,
             termination=termination, head_term=head_term, l2_only=l2_only,
             head_tail_eps=head_tail_eps, tail_complete=tail_complete,
-            use_fused=use_fused)
-        for fi, frame in enumerate(frames):
-            rays = frame.rays.astype(np.float32)
-            n = rays.shape[0]
-            pad = (-n) % chunk
-            if pad:
-                # repeat the last real ray (not zeros, which would compete
-                # for termination survivor slots); sliced away below
-                rays = np.concatenate([rays, np.repeat(rays[-1:], pad, axis=0)])
-            rays_dev = torch.from_numpy(rays).to(dev)
-            outs = [R.render_rays(params, mcfg, rcfg, state_r,
-                                  rays_dev[i:i + chunk], fused=fused)
-                    for i in range(0, len(rays), chunk)]
+            use_fused=use_fused, mesh=mesh)
+        for fi, f in enumerate(frames):
+            js = [j for j in range(first[fi], first[fi + 1]) if j in mine]
+            rays_dev = (torch.from_numpy(_pad_to_chunks(f.rays, chunk)).to(dev)
+                        if js else None)
+            frame = {j: R.render_rays(
+                params, mcfg, rcfg, state_r,
+                rays_dev[(j - first[fi]) * chunk:][:chunk], fused=fused)
+                for j in js}
             tails.extend(torch.stack([o["budget_tail"], o["head_tail"]])
-                         for o in outs)
-            results.append({k: torch.cat([o[k] for o in outs])[:n].cpu().numpy()
-                            for k in MAP_KEYS})
-            if progress:
+                         for o in frame.values())
+            # a frame's maps leave the card once its chunks are rendered
+            outs.update({j: {k: o[k].cpu().numpy() for k in MAP_KEYS}
+                         for j, o in frame.items()})
+            if progress and (mesh is None or mesh.rank == 0):
                 print(f"rendered frame {fi + 1}/{len(frames)}", flush=True)
+    if mesh is not None and frames:
+        outs = pmesh.gather_chunks(mesh, outs,
+                                   dst=None if maps_on_every_rank else 0)
+        tail = (torch.stack(tails).amax(dim=0) if tails
+                else torch.zeros(2, device=dev))
+        tails = [pmesh.all_reduce_(mesh, tail, "max")]
+    results = None
+    if mesh is None or maps_on_every_rank or mesh.rank == 0:
+        results = [{k: np.concatenate([outs[j][k] for j in
+                                       range(first[fi], first[fi + 1])])
+                    [:len(f.rays)] for k in MAP_KEYS}
+                   for fi, f in enumerate(frames)]
     budget_tail, head_tail = (torch.stack(tails).amax(dim=0).tolist()
                               if tails else (0.0, 0.0))
     if tails:
         _guardrail_warnings(rcfg, budget_tail, head_tail, head_tail_eps)
     return RenderReport(results, rcfg, budget_tail, head_tail)
+
+
+def _pad_to_chunks(rays: np.ndarray, chunk: int) -> np.ndarray:
+    """``rays`` padded to whole chunks by repeating the last real ray (not
+    zeros, which would compete for termination survivor slots)."""
+    rays = rays.astype(np.float32)
+    pad = (-rays.shape[0]) % chunk
+    if pad:
+        rays = np.concatenate([rays, np.repeat(rays[-1:], pad, axis=0)])
+    return rays
 
 
 def render_frames(params, mcfg, rcfg, state_r, frames: List[FrameData],
@@ -231,11 +271,13 @@ def render_frames(params, mcfg, rcfg, state_r, frames: List[FrameData],
 
     Each frame's rays are padded to whole chunks by repeating the last ray
     and the padding is cut off again. ``dispatch_group`` only batched device
-    dispatches on the TPU, and ``data_axis`` names the axis of a ``mesh``;
-    here the chunks run as a plain loop. Guardrail warnings are raised as in
-    the JAX package. ``use_fused=False`` samples the VM factors directly. The
-    unported options (``mesh``, ``bake_heads``, and those ``renderer.render.check_ported`` names)
-    raise."""
+    dispatches on the TPU; here the chunks run as a plain loop. ``mesh``
+    (``parallel/mesh.py``; ``data_axis`` names its axis) renders whole
+    chunks on each rank and returns every map on every rank (see the module
+    docstring); ``chunk`` must divide over it, as in the JAX package.
+    Guardrail warnings are raised as in the JAX package. ``use_fused=False``
+    samples the VM factors directly. The unported options (``bake_heads``,
+    and those ``renderer.render.check_ported`` names) raise."""
     return render_frames_report(
         params, mcfg, rcfg, state_r, frames, chunk=chunk, progress=progress,
         use_fused=use_fused, mesh=mesh, data_axis=data_axis,
@@ -257,20 +299,31 @@ def render_checkpoint_outputs(
         head_term: bool = True, l2_only: bool = True,
         tail_complete: bool | None = None, device="cuda") -> dict:
     """Full inference: render + cluster + write artifacts. Returns the
-    summary (frames, render and cluster seconds, rays/s, output dir)."""
+    summary (frames, render and cluster seconds, rays/s, output dir). On a
+    ``mesh`` every rank renders its chunks; rank 0 alone clusters and
+    writes, and the other ranks' summaries have no cluster seconds."""
     output_dir = Path(output_dir)
-    for sub in ("vis_semantics_and_surrogate", "pred_semantics",
-                "pred_surrogateid"):
-        (output_dir / sub).mkdir(parents=True, exist_ok=True)
+    writer = mesh is None or mesh.rank == 0
+    if writer:
+        for sub in ("vis_semantics_and_surrogate", "pred_semantics",
+                    "pred_surrogateid"):
+            (output_dir / sub).mkdir(parents=True, exist_ok=True)
     h, w = cfg.image_dim
 
     t_render0 = time.perf_counter()
-    per_frame = render_frames(params, mcfg, rcfg, state_r, frames, chunk,
-                              mesh=mesh, data_axis=cfg.data_axis,
-                              termination=termination, head_term=head_term,
-                              l2_only=l2_only, tail_complete=tail_complete,
-                              device=device)
+    per_frame = render_frames_report(
+        params, mcfg, rcfg, state_r, frames, chunk, mesh=mesh,
+        data_axis=cfg.data_axis, termination=termination,
+        head_term=head_term, l2_only=l2_only, tail_complete=tail_complete,
+        device=device, maps_on_every_rank=False).maps
     t_render = time.perf_counter() - t_render0
+    rays_total = len(frames) * h * w
+    summary = {"num_frames": len(frames), "render_seconds": t_render,
+               "cluster_seconds": None,
+               "rays_per_second": rays_total / max(t_render, 1e-9),
+               "output_dir": str(output_dir)}
+    if not writer:
+        return summary
 
     all_sem = [f["semantics"] for f in per_frame]
     all_inst = np.concatenate([f["instances"] for f in per_frame])
@@ -326,11 +379,5 @@ def render_checkpoint_outputs(
                 thing_classes=thing_classes, visualize_entropy=False)
             save_image(output_dir / "vis_semantics_and_surrogate" / name, grid)
 
-    rays_total = num_images * h * w
-    return {
-        "num_frames": num_images,
-        "render_seconds": t_render,
-        "cluster_seconds": t_cluster,
-        "rays_per_second": rays_total / max(t_render, 1e-9),
-        "output_dir": str(output_dir),
-    }
+    summary["cluster_seconds"] = t_cluster
+    return summary

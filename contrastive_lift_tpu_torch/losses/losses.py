@@ -6,6 +6,11 @@ formulations (per-label reductions over a fixed label capacity with validity
 masks), in PyTorch. ``linear_assignment_loss`` solves its assignment on the
 host with ``scipy.optimize.linear_sum_assignment``, the solver the reference
 called.
+
+The batch means take an optional ``count``: a rank of a data-parallel step
+passes the global batch's count, so that its loss is its share of the
+global mean (``train/step.py``); by default the mean is over the local
+batch.
 """
 from __future__ import annotations
 
@@ -29,8 +34,13 @@ def _segment_sum(values: torch.Tensor, ids: torch.Tensor,
 # Simple regression / regularizer losses
 # ---------------------------------------------------------------------------
 
-def mse_loss(pred, target):
-    return torch.mean((pred - target) ** 2)
+def _mean(x: torch.Tensor, count=None) -> torch.Tensor:
+    """The mean of ``x``, or its sum over ``count`` when given."""
+    return torch.mean(x) if count is None else torch.sum(x) / count
+
+
+def mse_loss(pred, target, count=None):
+    return _mean((pred - target) ** 2, count)
 
 
 def l1_loss(pred, target):
@@ -126,19 +136,21 @@ def sce_loss(logits, target_probs, alpha: float, beta: float, class_weights):
 
 def semantic_loss(logits, semantics, probs, confs, mode: str, class_weights,
                   use_symmetric: bool = False, ce_alpha: float = 0.85,
-                  ce_beta: float = 0.15):
+                  ce_beta: float = 0.15, count=None):
     """The three supervision modes: probability targets with confidence
-    (TTAConf), label targets with confidence (NoTTAConf), plain labels."""
+    (TTAConf), label targets with confidence (NoTTAConf), plain labels;
+    averaged over ``count`` rays (default: these)."""
     if use_symmetric:
         per = sce_loss(logits, probs, ce_alpha, ce_beta, class_weights)
-        return torch.mean(per * confs)
+        return _mean(per * confs, count)
     if mode == "TTAConf":
-        return torch.mean(weighted_ce_with_logits(logits, probs, class_weights)
-                          * confs)
+        return _mean(weighted_ce_with_logits(logits, probs, class_weights)
+                     * confs, count)
     if mode == "NoTTAConf":
-        return torch.mean(weighted_ce_with_logits(logits, semantics,
-                                                  class_weights) * confs)
-    return torch.mean(weighted_ce_with_logits(logits, semantics, class_weights))
+        return _mean(weighted_ce_with_logits(logits, semantics,
+                                             class_weights) * confs, count)
+    return _mean(weighted_ce_with_logits(logits, semantics, class_weights),
+                 count)
 
 
 # ---------------------------------------------------------------------------
@@ -147,10 +159,11 @@ def semantic_loss(logits, semantics, probs, confs, mode: str, class_weights,
 
 def segment_grouping_loss(sem_features, group_ids, confidences, num_groups: int,
                           class_weights, mode: str = "argmax_conf",
-                          valid: Optional[torch.Tensor] = None):
+                          valid: Optional[torch.Tensor] = None,
+                          count=None):
     """Pull each ray toward the argmax of its 2D segment's mean logits:
     weighted CE against that target, times the confidence in the ``*_conf``
-    modes, averaged over valid rays."""
+    modes, averaged over valid rays (``count`` of them, default these)."""
     if valid is None:
         valid = torch.ones(sem_features.shape[0], dtype=torch.bool,
                            device=sem_features.device)
@@ -163,7 +176,9 @@ def segment_grouping_loss(sem_features, group_ids, confidences, num_groups: int,
     if "conf" in mode and not mode.endswith("noconf"):
         per = per * confidences
     per = per * vf
-    return torch.sum(per) / torch.clamp(torch.sum(vf), min=1.0)
+    if count is None:
+        count = torch.sum(vf)
+    return torch.sum(per) / torch.clamp(count, min=1.0)
 
 
 # ---------------------------------------------------------------------------

@@ -11,11 +11,18 @@ Port of ``contrastive_lift_tpu/train/loop.py``. Structure, as there:
     optimizer state;
   * per step the host only draws the batches (numpy, the JAX order);
   * validation renders whole val frames in ray chunks on the direct VM
-    path and reports PSNR / mIoU / PQ / SQ / RQ.
+    path and reports PSNR / mIoU / PQ / SQ / RQ;
+  * data parallel: ``n_data_shards`` > 1 (or 0 = every visible device)
+    makes this process one rank of a ``data`` mesh (``parallel/mesh.py``):
+    parameters and optimizer state replicated, every rank drawing the global
+    batches and keeping its rows, the step reproducing the global program
+    (``train/step.py``); stage decisions computed on every rank and checked
+    to agree; validation chunks split whole between the ranks; only rank 0
+    writes files. The ranks are started by ``torchrun`` or by the CLI
+    (``parallel/launch.py``).
 
-Data parallel training (``n_data_shards`` > 1, or 0 with more than one
-card) is not ported yet (ROADMAP item 12). ``calibrate_aux_topk`` is the
-per-stage head-budget calibration, as a function.
+``calibrate_aux_topk`` is the per-stage head-budget calibration, as a
+function.
 """
 from __future__ import annotations
 
@@ -36,6 +43,8 @@ from ..io.checkpoint import save_checkpoint
 from ..metrics.metrics import ConfusionMatrix
 from ..metrics.panoptic_quality import panoptic_quality
 from ..models import tensorf as tf
+from ..parallel import launch
+from ..parallel import mesh as pmesh
 from ..renderer import occupancy as occ
 from ..renderer import render as R
 from ..utils.device import resolve_device
@@ -103,7 +112,10 @@ class Trainer:
     ``on_epoch_start`` (the sanity validation's included): ``epoch``,
     ``grid_dim``, ``bbox_aabb``, the calibrated ``aux_k`` and
     ``n_samples``; on the card, ``train_epoch`` adds
-    ``max_memory_allocated``, the device's peak since its last reset."""
+    ``max_memory_allocated``, the device's peak since its last reset.
+    With ``n_data_shards`` other than 1 the trainer is one rank of a launch
+    (``mesh``; ``device`` is then this rank's) and ``draws`` gives the
+    global batch's draws."""
     cfg: Config
     scene: SceneData
     run_dir: Path
@@ -115,10 +127,15 @@ class Trainer:
     def __post_init__(self):
         self.device = resolve_device(self.device)
         cfg = self.cfg
-        self._check_data_shards()
+        self.mesh = self._make_mesh()
+        if self.mesh is not None:
+            self.device = self.mesh.device
+        # only rank 0 writes files and prints
+        self.writer = self.mesh is None or self.mesh.rank == 0
         self.run_dir = Path(self.run_dir)
-        (self.run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
-        cfg.save(self.run_dir / "config.json")
+        if self.writer:
+            (self.run_dir / "checkpoints").mkdir(parents=True, exist_ok=True)
+            cfg.save(self.run_dir / "config.json")
         self.grid_dim = (cfg.min_grid_dim,) * 3
         self.mcfg, params, self.rcfg, self.state_r = build_model(
             cfg, self.scene.num_semantic_classes, self.scene.scene_bounds,
@@ -152,7 +169,7 @@ class Trainer:
         self._preserve_opt_once = False  # set by restore(); survives one rebuild
         self.seconds = defaultdict(list)
         self.stages = []
-        from ..utils.logger import make_logger, snapshot_source
+        from ..utils.logger import NullLogger, make_logger, snapshot_source
         from ..utils.observability import (install_signal_handlers,
                                            print_model_summary)
         try:
@@ -160,23 +177,61 @@ class Trainer:
             install_signal_handlers()
         except ValueError:  # pragma: no cover - not the main thread
             pass
-        snapshot_source(self.run_dir)
-        self.logger = make_logger(cfg.logger, self.run_dir)
-        print_model_summary(params)
+        self.logger = NullLogger()
+        if self.writer:
+            snapshot_source(self.run_dir)
+            self.logger = make_logger(cfg.logger, self.run_dir)
+            print_model_summary(params)
         self.voxel_schedule = occ.grid_upscale_voxel_counts(
             cfg.min_grid_dim, cfg.max_grid_dim, len(cfg.grid_upscale_epochs))
+        self._replicate_state()
 
-    def _check_data_shards(self):
-        """One card, or the CPU, trains unsharded (``n_data_shards`` 1, or 0
-        = every visible card); more raises."""
-        n = self.cfg.n_data_shards
-        visible = (torch.cuda.device_count() if self.device.type == "cuda"
-                   else 1)
-        if n == 1 or (n == 0 and visible == 1):
-            return
-        raise NotImplementedError(
-            f"n_data_shards={n}: data parallel training is not ported yet "
-            "(ROADMAP item 12)")
+    # -- mesh / sharding ----------------------------------------------------
+
+    def _make_mesh(self):
+        """The data-parallel mesh of ``n_data_shards`` (0 = every visible
+        device, 1 = off; ``parallel/launch.py::data_shards``), with the JAX
+        package's checks. More than one shard needs this process to be a
+        rank of a launch."""
+        n = launch.data_shards(self.cfg.n_data_shards, self.device)
+        if n == 1:
+            return None
+        if not pmesh.launched():
+            raise ValueError(
+                f"n_data_shards={n} but only 1 devices in a process outside "
+                "a launch: start the ranks with torchrun or through "
+                "cli/train.py, which spawns them")
+        for name, size in (("batch_size", self.cfg.batch_size),
+                           ("batch_size_contrastive",
+                            self.cfg.batch_size_contrastive),
+                           ("batch_size_segments",
+                            self.cfg.batch_size_segments),
+                           ("chunk", self.cfg.chunk)):
+            if size % n:
+                raise ValueError(
+                    f"{name}={size} must divide n_data_shards={n} (the batch "
+                    "leading axis is sharded over the data mesh; the reference "
+                    "DDP analogously requires per-rank slices)")
+        return pmesh.make_mesh(n, self.cfg.data_axis, device=self.device)
+
+    def _replicate_state(self):
+        """Rank 0's parameters and optimizer state on every rank."""
+        if self.mesh is not None:
+            pmesh.replicate_tree(self.mesh, self.state)
+
+    def _shard_batch(self, batch, shard=pmesh.shard_main_batch):
+        """This rank's part of ``batch`` (``shard``: its rows, or
+        ``pmesh.shard_instance_batch``'s whole images); without a mesh, all
+        of it."""
+        if batch is None or self.mesh is None:
+            return batch
+        return shard(self.mesh, batch)
+
+    def _agree(self, value, what: str):
+        """``value`` as every rank computed it (they must agree)."""
+        if self.mesh is None:
+            return value
+        return pmesh.agree(self.mesh, value, what)
 
     def _timed(self, kind: str, epoch: int, fn, *args):
         if self.device.type == "cuda":
@@ -193,9 +248,10 @@ class Trainer:
     def _calibrate_aux_topk(self, gates: TrainGates, epoch: int):
         """Per-stage head top-k of every train-phase head (main + aux):
         ``calibrate_aux_topk`` on the current field."""
-        return calibrate_aux_topk(self.cfg, self.state.params, self.mcfg,
-                                  self.rcfg, self.state_r, gates, epoch,
-                                  self.main_sampler)
+        return self._agree(
+            calibrate_aux_topk(self.cfg, self.state.params, self.mcfg,
+                               self.rcfg, self.state_r, gates, epoch,
+                               self.main_sampler), "the head budget")
 
     def _rebuild_stage(self, epoch: int):
         """Rebuild the step and reset the optimizer state after any shape
@@ -211,7 +267,7 @@ class Trainer:
                 self._aux_k = aux_k
                 self._step_fn = make_train_step(
                     self.cfg, self.mcfg, self.rcfg, gates, self.class_weights,
-                    self.state.params, aux_head_topk=aux_k)
+                    self.state.params, aux_head_topk=aux_k, mesh=self.mesh)
             return
         t0 = time.perf_counter()
         params = self.state.params
@@ -226,7 +282,7 @@ class Trainer:
         self._aux_k = aux_k
         self._step_fn = make_train_step(self.cfg, self.mcfg, self.rcfg, gates,
                                         self.class_weights, params,
-                                        aux_head_topk=aux_k)
+                                        aux_head_topk=aux_k, mesh=self.mesh)
         # validation renders the VM factors directly, dense, at the
         # training render config
         mcfg, rcfg = self.mcfg, self.rcfg
@@ -236,13 +292,18 @@ class Trainer:
         self.seconds["rebuild"].append((epoch, time.perf_counter() - t0))
 
     def _shrink(self):
-        return occ.update_bbox_and_shrink(self.state.params, self.mcfg,
-                                          self.state_r, self.grid_dim)
+        params, state_r, grid_dim = occ.update_bbox_and_shrink(
+            self.state.params, self.mcfg, self.state_r, self.grid_dim)
+        self._agree((tuple(grid_dim), state_r.bbox_aabb.cpu().numpy()),
+                    "the shrunk grid and AABB")
+        return params, state_r, grid_dim
 
     def _upscale(self, epoch: int):
         target_voxels = self.voxel_schedule[
             list(self.cfg.grid_upscale_epochs).index(epoch)]
-        target_res = occ.get_target_resolution(self.state_r, target_voxels)
+        target_res = self._agree(
+            occ.get_target_resolution(self.state_r, target_voxels),
+            "the upscale resolution")
         return tf.upsample_volume_grid(self.state.params, target_res), target_res
 
     def on_epoch_start(self, epoch: int):
@@ -312,7 +373,9 @@ class Trainer:
             rng = (self.draws(self.global_step) if self.draws is not None
                    else self._gen)
             self.state, metrics = self._step_fn(
-                self.state, self.state_r, batch_main, batch_inst, batch_seg,
+                self.state, self.state_r, self._shard_batch(batch_main),
+                self._shard_batch(batch_inst, pmesh.shard_instance_batch),
+                self._shard_batch(batch_seg),
                 rng, lr_scale, lambda_dist)
             self.global_step += 1
             if self.global_step % self.log_every == 0:
@@ -355,21 +418,31 @@ class Trainer:
 
     def render_frame(self, rays: np.ndarray, chunk: Optional[int] = None) -> dict:
         """The maps (numpy) of ``rays``, rendered in chunks of ``chunk``
-        (default ``cfg.chunk``; the last chunk padded with zero rays)."""
+        (default ``cfg.chunk``; the last chunk padded with zero rays); on a
+        mesh each rank renders whole chunks and every rank gets the maps."""
         if self._render_fn is None:
             self._rebuild_stage(self.start_epoch)
         chunk = chunk or self.cfg.chunk
-        outs = []
+        keys = ("rgb", "semantics", "instances", "depth")
         n = rays.shape[0]
         pad = (-n) % chunk
         rays_p = torch.as_tensor(np.pad(rays, ((0, pad), (0, 0))),
                                  device=self.device)
+        n_chunks = len(rays_p) // chunk
+        mine = (range(n_chunks) if self.mesh is None
+                else pmesh.group_batch_sharding(self.mesh, n_chunks))
+        outs = {}
         with torch.no_grad():
-            for i in range(0, len(rays_p), chunk):
-                outs.append(self._render_fn(self.state.params, self.state_r,
-                                            rays_p[i:i + chunk]))
-        return {k: torch.cat([o[k] for o in outs]).cpu().numpy()[:n]
-                for k in ("rgb", "semantics", "instances", "depth")}
+            for j in mine:
+                o = self._render_fn(self.state.params, self.state_r,
+                                    rays_p[j * chunk:(j + 1) * chunk])
+                outs[j] = {k: o[k] for k in keys}
+        if self.mesh is None:
+            return {k: torch.cat([outs[j][k] for j in range(n_chunks)])
+                    .cpu().numpy()[:n] for k in keys}
+        outs = pmesh.gather_chunks(self.mesh, outs)
+        return {k: np.concatenate([outs[j][k] for j in range(n_chunks)])[:n]
+                for k in keys}
 
     def validate(self, epoch: int, max_frames: Optional[int] = None) -> dict:
         t0 = time.perf_counter()
@@ -419,7 +492,10 @@ class Trainer:
     def save(self, tag: str, epoch: Optional[int] = None):
         """Full training checkpoint: params, both optimizer states and the
         geometry. ``epoch`` counts COMPLETED epochs (``fit`` saves "last"
-        with epoch + 1); step checkpoints store the epoch in progress."""
+        with epoch + 1); step checkpoints store the epoch in progress. On a
+        mesh only rank 0 writes."""
+        if not self.writer:
+            return
         save_checkpoint(
             self.run_dir / "checkpoints" / f"{tag}.npz", self.state.params,
             grid_dim=self.grid_dim,
@@ -441,15 +517,17 @@ class Trainer:
         self.grid_dim, self.rcfg, self.state_r, self.state = (
             st.grid_dim, st.rcfg, st.state_r, st.state)
         self.start_epoch, self.global_step = st.epoch, st.global_step
-        if not st.has_opt_state:
+        if not st.has_opt_state and self.writer:
             print("[resume] checkpoint has no optimizer state; cold restart "
                   "of Adam moments")
         self._step_key = None
         self._step_fn = None
         self._render_fn = None
         self._preserve_opt_once = st.has_opt_state
-        print(f"resumed from {ckpt_path}: epoch {self.start_epoch}, "
-              f"step {self.global_step}, grid {self.grid_dim}")
+        self._replicate_state()
+        if self.writer:
+            print(f"resumed from {ckpt_path}: epoch {self.start_epoch}, "
+                  f"step {self.global_step}, grid {self.grid_dim}")
 
     def _log(self, record: dict):
         flat = {}
@@ -459,9 +537,10 @@ class Trainer:
             else:
                 flat[k] = v
         self.logger.log(flat, step=self.global_step)
-        printable = {k: (round(v, 4) if isinstance(v, float) else v)
-                     for k, v in flat.items()}
-        print(printable, flush=True)
+        if self.writer:
+            printable = {k: (round(v, 4) if isinstance(v, float) else v)
+                         for k, v in flat.items()}
+            print(printable, flush=True)
 
     def visualize(self, indices=None, max_frames: int = 4):
         """Save panoptic visualization grids of selected val frames."""

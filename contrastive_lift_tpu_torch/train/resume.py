@@ -163,13 +163,15 @@ def sketch_error(got: np.ndarray, want: np.ndarray) -> float:
 
 
 def golden_step(ckpt_path, cfg, scene: SceneData, golden,
-                device="cuda") -> dict:
+                device="cuda", mesh=None) -> dict:
     """Step 1 of a training golden with the port: restore ``ckpt_path``,
     calibrate the head budget, draw the batches of the golden's sampler
     seed and take one step with the golden's draws. Returns the budget, the
     metrics (floats), the sketches of every leaf (``sketch_<name>`` [leaves,
     17]; gradients of leaves a chain does not train are zero), the setup,
-    the new state, the step function and the seconds of each part."""
+    the new state, the step function and the seconds of each part.
+    ``mesh``: take the step as the ranks of a data-parallel step do (a
+    1-rank mesh runs the sharded code on the whole batch)."""
     t0 = time.perf_counter()
     setup = restore_training(ckpt_path, cfg, scene, device)
     t1 = time.perf_counter()
@@ -187,7 +189,7 @@ def golden_step(ckpt_path, cfg, scene: SceneData, golden,
                       g("draw_seg_jitter"), g("draw_inst_jitter"))
     step = make_train_step(cfg, setup.mcfg, setup.rcfg, setup.gates,
                            setup.class_weights, p, aux_head_topk=k,
-                           keep_grads=True)
+                           keep_grads=True, mesh=mesh)
     state, metrics = step(setup.state, setup.state_r, bm, bi, bs, draws,
                           setup.lr_scale, setup.lambda_dist_reg)
     metrics = {name: float(v) for name, v in metrics.items()}

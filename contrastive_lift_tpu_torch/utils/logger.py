@@ -9,7 +9,8 @@ The port's copy of ``contrastive_lift_tpu/utils/logger.py``:
     ``torch.utils.tensorboard``;
   * a wandb logger, only if the wandb package exists.
 ``make_logger`` falls back to the JSONL logger when tensorboard or wandb
-cannot be imported.
+cannot be imported. ``NullLogger`` writes nothing (the ranks of a
+data-parallel run other than rank 0).
 """
 from __future__ import annotations
 
@@ -83,6 +84,19 @@ class TensorBoardLogger(JsonlLogger):
     def close(self):
         self.writer.close()
         super().close()
+
+
+class NullLogger:
+    """The logger of a rank that writes nothing (all but rank 0)."""
+
+    def log(self, record: dict, step: int | None = None):
+        pass
+
+    def log_image(self, tag: str, image01: np.ndarray, step: int):
+        pass
+
+    def close(self):
+        pass
 
 
 def make_logger(kind: str, run_dir):

@@ -313,8 +313,9 @@ def test_render_and_evaluate_clis_match_jax(cli_run, clustering):
 
 
 def test_render_cli_output_dir_and_options(cli_run, monkeypatch):
-    """Without --output_dir the port writes where the JAX CLI does; the
-    unported --n_data_shards values raise naming the queue item."""
+    """Without --output_dir the port writes where the JAX CLI does;
+    --n_data_shards 2 (once refused) spawns two ranks that write the
+    tree (tests/test_torch_port_parallel.py compares it with one rank's)."""
     tmp, scene, ckpt = cli_run
     monkeypatch.chdir(tmp)
     base = ["--ckpt_path", str(ckpt), "--image_dim", *map(str, SCENE_HW),
@@ -322,8 +323,9 @@ def test_render_cli_output_dir_and_options(cli_run, monkeypatch):
     t_render_cli.main(base + ["--segmentwise", "--head-topk", "none"])
     assert (tmp / "runs" / f"scene_test_{JConfig().experiment}_seg"
             / "instance_features.npy").exists()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        t_render_cli.main(base + ["--n_data_shards", "2"])
+    t_render_cli.main(base + ["--n_data_shards", "2", "--output_dir",
+                              str(tmp / "sharded")])
+    assert (tmp / "sharded" / "instance_features.npy").exists()
     assert [t_render_cli.parse_head_topk(v) for v in
             ("auto", "none", "0", "12")] == ["auto", None, None, 12]
 

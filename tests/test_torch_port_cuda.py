@@ -1,4 +1,5 @@
-"""The brick-atlas CUDA kernel against its plain PyTorch versions, on a card.
+"""The brick-atlas CUDA kernel against its plain PyTorch versions, and the
+card's paths against the CPU's or one process's, on a card.
 
 These tests need a CUDA card and skip without one (the kernel has no CPU
 mode). The file imports no JAX, so it runs on a GPU host that has none:
@@ -611,3 +612,87 @@ def test_instance_clusters_on_card_match_cpu(cuda_device):
         "full", device=cuda_device)
     np.testing.assert_allclose(got[0], want[0], rtol=0, atol=1e-6)
     assert (got[1] == want[1]).mean() >= 0.999
+
+
+# ---------------------------------------------------------------------------
+# data parallel on the card (parallel/)
+# ---------------------------------------------------------------------------
+
+def _term_bars(two, one):
+    for case in one:
+        for key, want in one[case]["metrics"].items():
+            np.testing.assert_allclose(two[case]["metrics"][key], want,
+                                       rtol=1e-5, atol=1e-7,
+                                       err_msg=f"{case} {key}")
+        for path, want in one[case]["grads"].items():
+            np.testing.assert_allclose(two[case]["grads"][path], want,
+                                       rtol=0, atol=1e-6,
+                                       err_msg=f"{case} {path}")
+        assert len(set(two[case]["param_digests"])) == 1
+
+
+@pytest.mark.cuda
+def test_sharded_steps_on_card_match_one_process(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card take each globally normalised term's
+    step (``parallel/testing.py::term_steps``) as one process does."""
+    from contrastive_lift_tpu_torch.parallel import launch
+    from contrastive_lift_tpu_torch.parallel import testing as ptesting
+    one = ptesting.term_steps("cuda")
+    two = launch.spawn(ptesting.term_steps, 2, ("cuda", "gloo"), timeout=300,
+                       store_dir=tmp_path)
+    _term_bars(two, one)
+
+
+@pytest.mark.cuda
+def test_one_rank_nccl_step_matches_the_unsharded_step(cuda_device,
+                                                       tmp_path):
+    """A 1-rank NCCL group runs the sharded step code (all-reduces, global
+    normalisers, TV after the reduction) as the unsharded step runs."""
+    from contrastive_lift_tpu_torch.parallel import launch
+    from contrastive_lift_tpu_torch.parallel import testing as ptesting
+    one = ptesting.term_steps("cuda")
+    nccl = launch.spawn(ptesting.term_steps, 1, ("cuda", "nccl"), timeout=300,
+                        store_dir=tmp_path)
+    _term_bars(nccl, one)
+
+
+@pytest.mark.cuda
+def test_sharded_render_on_card_equals_one_process(cuda_device, tmp_path):
+    """Two gloo ranks sharing the card render whole chunks: the budgets and
+    guardrails equal, the maps within 1e-6, of one process's render."""
+    from contrastive_lift_tpu_torch.config import Config
+    from contrastive_lift_tpu_torch.factory import build_model
+    from contrastive_lift_tpu_torch.io.checkpoint import save_checkpoint
+    from contrastive_lift_tpu_torch.parallel import dryrun, launch
+    from contrastive_lift_tpu_torch.parallel import testing as ptesting
+    kw = dict(instance_loss_mode="slow_fast", use_DINO_style=True,
+              max_instances=3, use_mlp_for_semantics=True,
+              use_mlp_for_instances=True, semantic_weight_mode="softmax",
+              image_dim=(16, 24), seed=0)
+    bbox = np.array([[-1, -1, -1], [1, 1, 1]], np.float32)
+    _, params, _, _ = build_model(Config(**kw).resolve_epochs(), 2, bbox,
+                                  (14, 14, 14), step_ratio=0.25, device="cpu")
+    ckpt = str(tmp_path / "field.npz")
+    save_checkpoint(ckpt, ptesting.slab_field(params), grid_dim=(14, 14, 14),
+                    bbox_aabb=bbox, epoch=0, global_step=0)
+    rng = np.random.default_rng(0)
+    rays = []
+    for n in (300, 200):
+        o = rng.uniform(-0.3, 0.3, (n, 3)) + np.array([0.0, 0.0, -2.0])
+        d = rng.normal(size=(n, 3))
+        d[:, 2] = np.abs(d[:, 2]) + 1.0
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        rays.append(np.concatenate([o, d, np.full((n, 1), 0.05),
+                                    np.full((n, 1), 5.0)], -1)
+                    .astype(np.float32))
+    args = (ckpt, kw, 2, rays, 128, "cuda")
+    one = ptesting.render_sharded(*args)
+    two = launch.spawn(ptesting.render_sharded, 2, args + (0.25, "gloo"),
+                       timeout=300, store_dir=tmp_path)
+    assert two["rcfg"] == one["rcfg"] and one["rcfg"]["term_first"] > 0
+    assert (two["budget_tail"], two["head_tail"]) == (one["budget_tail"],
+                                                      one["head_tail"])
+    for a, b in zip(two["maps"], one["maps"]):
+        for key in dryrun.MAP_KEYS:
+            np.testing.assert_allclose(a[key], b[key], rtol=0, atol=1e-6,
+                                       err_msg=key)

@@ -542,9 +542,24 @@ def test_trainer_and_cli_default_to_the_card(scene, tmp_path, monkeypatch):
 
 
 def test_data_parallel_is_not_ported(scene, tmp_path):
-    cfg = TConfig(**dict(LOOP_KW, n_data_shards=2)).resolve_epochs()
-    with pytest.raises(NotImplementedError, match="item 12"):
+    """Data parallel is ported (the name predates it): ``n_data_shards=2``
+    trains on two spawned gloo ranks, with finite metrics and replicas
+    that stay bitwise equal; a plain process, one CPU device, refuses it
+    with the JAX package's ValueError (tests/test_torch_port_parallel.py
+    holds the sharded steps to JAX's)."""
+    from contrastive_lift_tpu_torch.parallel import dryrun, launch
+    kw = dict(LOOP_KW, n_data_shards=2, batch_size_contrastive=2)
+    cfg = TConfig(**kw).resolve_epochs()
+    with pytest.raises(ValueError, match="only 1 devices"):
         tloop.Trainer(cfg, scene, tmp_path / "t", device="cpu")
+    res = launch.spawn(
+        dryrun.trainer_steps, 2,
+        (kw, dict(num_spheres=4, num_train=2, num_val=1, image_dim=(16, 24),
+                  seed=0), str(tmp_path / "t2"), "cpu", None, None, 2),
+        timeout=120, store_dir=tmp_path, threads=1)
+    assert len(res["metrics"]) == 2
+    assert all(np.isfinite(v) for m in res["metrics"] for v in m.values())
+    assert len(set(res["param_digests"])) == len(set(res["opt_digests"])) == 1
 
 
 @pytest.mark.parametrize("kind", ["panopli", "mos"])

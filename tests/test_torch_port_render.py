@@ -248,7 +248,8 @@ def test_unported_options_raise(tmp_path):
     NotImplementedError naming it: the L1 budget of the calibration
     (l2_only=False), heavy/light bucketing (what calibration picks with
     termination=False on this field), iter/rank head selection, head dedup,
-    span gathers, baked heads, the mesh and the distilled-feature heads."""
+    span gathers, baked heads and the distilled-feature heads (a mesh
+    renders: tests/test_torch_port_parallel.py)."""
     ckpt = _checkpoint(tmp_path / "field.npz", {})
     cfg = _cfg(TConfig)
     p, m, r, s, _ = trender.load_model_for_inference(ckpt, cfg, 2,
@@ -263,10 +264,9 @@ def test_unported_options_raise(tmp_path):
     with pytest.raises(NotImplementedError, match="max_subsegments_light"):
         trender.render_frames(p, m, light, s, frames, termination=False,
                               device="cpu")
-    for kw, name in ((dict(mesh=object()), "mesh"),
-                     (dict(bake_heads=True), "bake_heads")):
-        with pytest.raises(NotImplementedError, match=name):
-            trender.render_frames(p, m, r, s, frames, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="bake_heads"):
+        trender.render_frames(p, m, r, s, frames, device="cpu",
+                              bake_heads=True)
     assert trender.render_frames(p, m, r, s, frames, use_fused=False,
                                  device="cpu")[0]["rgb"].shape == (64, 3)
     # every unported option is refused, on the dense and production paths;
