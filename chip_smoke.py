@@ -39,7 +39,16 @@ Phases, each printing JSON lines with their seconds:
              column), the kernel's traffic without the rows; and, with
              ``--against``, the same kernel built from other sources of
              ``brick_interp.cu`` (an earlier commit's), timed on the same
-             inputs in the same process;
+             inputs in the same process; then the span form
+             (``sample_density_brick_span``, 4 atlas rows a span) in float32
+             and bfloat16 against its plain version on ``random`` spans
+             (4,096 x 12 spans of 8 samples a quarter voxel apart on random
+             lines through the N(0,1) grid) and on ``span_chunk`` (the
+             pass-A samples of the first 4,096-ray chunk of r5b's render
+             with span gathers, ``fidelity.production_chunk(option="span")``),
+             and bit for bit against the fused form on every span whose
+             runs fit its rows, timed as above with the fused form's time on
+             the same samples beside it;
 4. main    - the port's dense render of the committed r5b checkpoint on the
              4 val frames of its scene, then mean-shift and PQ^scene
              (``inference/fidelity.py::run_dense``), held against the JAX
@@ -66,7 +75,22 @@ Phases, each printing JSON lines with their seconds:
              unless the golden raised one; compared by guardrail, the values
              they quote are printed), and the float32 density kernel
              launched; the warm rays/s is printed beside the dense path's;
-7. train_r5b - one training step of r5b (``train/resume.py``): resumed
+7. options_r5b - each render option of ``inference/fidelity.py::OPTIONS``
+             (the production point with the L1 cascade, with termination
+             off so that the calibration picks heavy/light bucketing, with
+             iter and with rank head selection, with 6-cell head dedup, with
+             span gathers of 4 rows, with baked heads) through
+             ``run_production(option=)``, cold and warm, each with the launch
+             counts zeroed just before and read just after, held to the
+             eager JAX golden ``contrastive_lift_tpu_torch/testdata/
+             r5b_options_golden.npz`` at main_production's bars (budgets
+             equal, maps within 3e-2, PQ^scene and masked PQ within 0.5 pt,
+             the same guardrail warnings), a float32 launch of the density
+             kernel in every option (the fused form, or under span gathers
+             the span form, which the span render must launch); each
+             option's warm rays/s is printed beside the production render's
+             with the card's name and power limit;
+8. train_r5b - one training step of r5b (``train/resume.py``): resumed
              from ``final.npz`` and its optimizer state on ``cuda`` with r5b's
              own configuration, the head budget calibrated, step 1 on the
              batches of the golden's sampler seed and the golden's random
@@ -79,7 +103,7 @@ Phases, each printing JSON lines with their seconds:
              samplers and generator, every metric finite, with the warm
              steps/s, rays/s and peak device memory beside the card's name
              and power limit;
-8. stage_r5b - the stage changes of the JAX ``Trainer`` on ``final.npz``
+9. stage_r5b - the stage changes of the JAX ``Trainer`` on ``final.npz``
              with r5b's config (``train/stages.py``): the AABB shrink and the
              upsamples to each count of r5b's voxel schedule, held against
              the JAX golden ``contrastive_lift_tpu_torch/testdata/
@@ -87,7 +111,7 @@ Phases, each printing JSON lines with their seconds:
              the target resolutions equal, the AABB equal (one float32 step
              is reported, more fails), the occupied count within 0.01%,
              every upsampled plane and line's sketch within 1e-5 of its norm;
-9. train_loop_r5b - ``Trainer.fit`` from scratch on ``cuda`` with r5b's
+10. train_loop_r5b - ``Trainer.fit`` from scratch on ``cuda`` with r5b's
              configuration and widths, cut to 8 train frames of r5b's scene,
              4 epochs (instance phase from 2, segment phase from 3), one
              sanity frame and half the val frames: the shrinks at epochs 1
@@ -110,7 +134,7 @@ Phases, each printing JSON lines with their seconds:
              ``last.npz`` (launch counts zeroed just before): the float32
              density kernel must have run, its first chunk must be
              ``loop_chunk``'s shape and every map be finite;
-10. cli_r5b - the render and evaluate CLIs as a user runs them
+11. cli_r5b - the render and evaluate CLIs as a user runs them
              (``inference/fidelity.py::run_cli``): r5b's synthetic scene
              written in the MOS layout (``write_mos_scene``: PNG colour, npy
              labels, metadata.json cameras; the reader renormalises the
@@ -134,7 +158,7 @@ Phases, each printing JSON lines with their seconds:
              (``fidelity.cli_chunk``), timed and bounded as in the kernels
              phase. Prints render and cluster seconds and rays/s of each
              clustering beside the card's name and power limit;
-11. tools_r5b - the tools of slice 3a as a user runs them, on the same
+12. tools_r5b - the tools of slice 3a as a user runs them, on the same
              scene with a run directory rendering every 4th test frame
              (``inference/fidelity.py::tools_run_dir``, ``run_tools``):
              ``cli.find_bandwidth`` on every 18th train frame (3 frames,
@@ -163,7 +187,7 @@ Phases, each printing JSON lines with their seconds:
              density kernel launched in the phase. Prints each tool's host
              seconds and rays/s and the phase's kernel launches by row type
              beside the card's name and power limit;
-12. ddp_r5b - data parallel (``parallel/mesh.py``) on the one card:
+13. ddp_r5b - data parallel (``parallel/mesh.py``) on the one card:
              (a) the r5b golden step (``train/resume.py::golden_step``)
              through the sharded step code on an explicit 1-rank NCCL group,
              held to ``r5b_train_step_golden.npz`` at train_r5b's bars; (b)
@@ -183,7 +207,7 @@ Phases, each printing JSON lines with their seconds:
              ranks share one card: not a scaling number), the all-reduce
              bytes a step and the milliseconds of one all-reduce of that
              size, and each rank's kernel launches;
-13. profile - only with ``--profile``: one more warm render of the 4 val
+14. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
@@ -196,8 +220,9 @@ Phases, each printing JSON lines with their seconds:
 Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
 on the render-chunk inputs, the fused form also on the production chunk,
 the loop chunk and the CLI chunk, with its launches in main_production, in
-train_loop_r5b's render, in cli_r5b, in tools_r5b and, summed over the
-ranks, in ddp_r5b) and, last, ``{"ok": true, "device": {...}}``.
+each option of options_r5b, in train_loop_r5b's render, in cli_r5b, in
+tools_r5b and, summed over the ranks, in ddp_r5b; the span form timed on
+the span chunk with its launches in the span render) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
 before printing any result.
@@ -216,6 +241,7 @@ TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
 STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
 CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
 TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
+OPTIONS_GOLDEN = GOLDEN.with_name("r5b_options_golden.npz")
 # warm steps of train_r5b after step 1, and the sampler seed of those
 TRAIN_STEPS = 10
 TRAIN_STEP_SEED = 1
@@ -230,12 +256,19 @@ LOOP_OVERRIDES = {"max_epoch": 4, "instance_optimization_epoch": 2,
 RESUME_RTOL = 1e-5
 TPU_KERNEL = "contrastive_lift_tpu/ops/pallas_interp.py:64"
 KERNEL_SOURCE = "contrastive_lift_tpu_torch/csrc/brick_interp.cu"
+# the span form ports the JAX package's opt-in span gathers, an XLA twin of
+# the TPU kernel for spans
+SPAN_REPLACES = "contrastive_lift_tpu/ops/fused_grid.py:572"
 
 # r5b: grid 131x131x121, 879 samples per ray at step_ratio 0.25, chunks of
 # 1,024 rays (its scene and checkpoint are in inference/fidelity.py)
 GRID = (131, 131, 121)
 SAMPLES_PER_CHUNK = 1024 * 879
 DTYPES = ("float32", "bfloat16")
+# random spans for the span form: 4,096 rays x 12 spans x 8 samples a
+# quarter voxel apart (the production chunk's pass-A shape and r5b's step)
+SPAN_SHAPE = (4096, 12, 8)
+SPAN_STEP_VOXELS = 0.25
 # kernel vs plain: float32 sums of the same (widened) values, in another
 # order. On the random set (N(0,1) grid) the bar is absolute; the r5b grid's
 # densities reach ~100, where one float32 step is 7.6e-6, so on the render
@@ -598,6 +631,99 @@ def literal_case(dense, xyz, dtype):
     return rec
 
 
+def span_inputs():
+    """name -> (dense float32 grid, xyz [R,K,T,3] spans, splus shift, atlas
+    rows a span) for the span form: ``random``, spans of 8 samples a quarter
+    voxel apart on random lines through a 131x131x121 N(0,1) grid (out-of-box
+    samples included), and ``span_chunk``, the pass-A samples of the first
+    4,096-ray chunk of r5b's render with span gathers
+    (``inference/fidelity.py::production_chunk(option="span")``)."""
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        OPTIONS, PRODUCTION_CHUNK, R5B_CKPT, R5B_SCENE, e2e_scene,
+        production_chunk)
+    rows = OPTIONS["span"][0]["fine_span_rows"]
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    dense = torch.randn(GRID, generator=gen, device="cuda")
+    g = torch.tensor(GRID, dtype=torch.float32, device="cuda")
+    R, K, T = SPAN_SHAPE
+    o = torch.rand((R, K, 1, 3), generator=gen, device="cuda") * (g + 1) - 1
+    d = torch.randn((R, K, 1, 3), generator=gen, device="cuda")
+    d = d / d.norm(dim=-1, keepdim=True)
+    t = torch.arange(T, device="cuda", dtype=torch.float32)[:, None]
+    xyz = ((o + d * t * SPAN_STEP_VOXELS) / (g - 1) * 2 - 1).contiguous()
+    chunk = production_chunk(R5B_CKPT, e2e_scene(*R5B_SCENE), device="cuda",
+                             option="span")
+    with np.load(OPTIONS_GOLDEN) as gold:
+        k_a = int(gold["span_budget_term_first"])
+    if chunk[2].shape != (PRODUCTION_CHUNK * k_a * T, 3):
+        raise AssertionError(f"unexpected span chunk shape "
+                             f"{tuple(chunk[2].shape)}")
+    return {"random": (dense, xyz, -10.0, rows),
+            "span_chunk": (chunk[0], chunk[2].reshape(PRODUCTION_CHUNK, k_a,
+                                                      T, 3).contiguous(),
+                           chunk[1], rows)}
+
+
+def span_rows_used(grid, xyz, rows: int):
+    """([P] the atlas row each sample of [R,K,T,3] spans reads in the span
+    form: its run's, clamped as the JAX function clamps; [P,3] its in-brick
+    position; [R,K] whether the span's runs fit in ``rows``)."""
+    import torch
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+    moves, run_row, frac = bi.span_runs(grid, xyz, rows)
+    used = torch.gather(run_row, 2, torch.clamp(moves, max=rows - 1))
+    return used.reshape(-1), frac, moves[..., -1] < rows
+
+
+def span_case(dense, xyz, shift, dtype, rows):
+    """The span form against its plain version and, on the spans whose runs
+    fit, bit for bit against the fused form's kernel; timed as every case,
+    with the fused form's time on the same samples beside it."""
+    import torch
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+    from contrastive_lift_tpu_torch.ops.fused_grid import build_brick_atlas
+
+    grid = tuple(dense.shape)
+    flat = xyz.view(-1, 3)
+    n = flat.shape[0]
+    atlas = build_brick_atlas(dense, getattr(torch, dtype))
+    got = bi.sample_density_brick_span(atlas, xyz, grid, shift, rows)
+    ref = bi.sample_density_brick_span_reference(atlas, xyz, grid, shift, rows)
+    magnitude = bi.sample_density_brick_span_reference(atlas.abs(), xyz, grid,
+                                                       0.0, rows)
+    fused = bi.sample_density_brick(atlas, flat, grid, shift).view(got.shape)
+    row, frac, fits = span_rows_used(grid, xyz, rows)
+    library = dense_yardstick(dense.to(atlas.dtype).float(), flat, shift)
+    in_box = ((flat.abs() <= 1.0).all(dim=1).view(got.shape)
+              & fits[..., None]).reshape(-1)
+    elems, sectors = atlas_needs(row, frac, atlas.element_size())
+    torch.cuda.synchronize()
+    if not torch.equal(got[fits], fused[fits]):
+        raise AssertionError(f"span form {dtype}: differs from the fused "
+                             "form on spans whose runs fit")
+    b_ms, b_by = bound(elems * atlas.element_size() + 16 * n,
+                       FLOPS_PER_SAMPLE * n)
+    floor_ms, _ = bound(SECTOR_BYTES * sectors + 16 * n, 0)
+    return {"max_abs_err": float((got - ref).abs().max()),
+            "max_scaled_err": scaled_err(got.view(-1), ref.view(-1),
+                                         magnitude.view(-1)),
+            "library_in_box_max_abs_err": float(
+                (library() - got.view(-1))[in_box].abs().max()),
+            "rows_per_span": rows, "spans": int(fits.numel()),
+            "spans_clamped": int((~fits).sum()),
+            "rows_touched": int(torch.unique(row).numel()),
+            "elements_touched": elems, "sectors_touched": sectors,
+            **time_case(lambda: bi.sample_density_brick_span(
+                atlas, xyz, grid, shift, rows),
+                lambda: bi.sample_density_brick_span_reference(
+                    atlas, xyz, grid, shift, rows), library, flat),
+            "fused_ms": timed(lambda: bi.sample_density_brick(
+                atlas, flat, grid, shift))[0],
+            "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms}
+
+
 def run_case(phase, kname, inputs, dtype, case, samples, empty_kernel_ms):
     """Run one case, print it and return its record; raises on a kernel
     that disagrees with its plain version or a yardstick that computes
@@ -645,6 +771,13 @@ def phase_kernels():
                 records[(kname, inputs, dtype)] = run_case(
                     "kernels", kname, inputs, dtype, case, xyz.shape[0],
                     empty_kernel_ms)
+    kname = "sample_density_brick_span"
+    for inputs, (dense, xyz, shift, rows) in span_inputs().items():
+        for dtype in DTYPES:
+            records[(kname, inputs, dtype)] = run_case(
+                "kernels", kname, inputs, dtype,
+                lambda: span_case(dense, xyz, shift, dtype, rows),
+                xyz.numel() // 3, empty_kernel_ms)
     return records
 
 
@@ -818,6 +951,89 @@ def phase_main_production(dense_warm_rays_per_second: float):
             raise AssertionError(f"production {key} map differs from the JAX "
                                  f"golden by {err} > {BF16_MAP_TOL}")
     check_pq((res, warm), "main_production", PRODUCTION_GOLDEN)
+    return launches, n_rays / warm["render_seconds"]
+
+
+def phase_options_r5b(production_warm_rays_per_second: float):
+    """Each render option of ``inference/fidelity.py::OPTIONS`` through
+    ``run_production(option=)`` (launch counts zeroed just before, read just
+    after), cold and warm, held to ``r5b_options_golden.npz``. Returns the
+    launch counts of each option's cold render."""
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        BUDGET_FIELDS, OPTIONS, R5B_CKPT, R5B_SCENE, e2e_scene, guardrail,
+        run_production)
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    scene = e2e_scene(*R5B_SCENE)
+    n_rays = sum(len(f.rays) for f in scene.val_frames)
+    with np.load(OPTIONS_GOLDEN) as g:
+        gold = {k: g[k] for k in g.files}
+    idx = gold["ray_index"]
+    t_phase = time.perf_counter()
+    launches, rates, bad = {}, {}, []
+    for name in OPTIONS:
+        bi.reset_launches()
+        t0 = time.perf_counter()
+        res = run_production(R5B_CKPT, scene, device="cuda", option=name)
+        seconds = time.perf_counter() - t0
+        launches[name] = launch_counts()
+        warm = run_production(R5B_CKPT, scene, device="cuda", option=name)
+        rates[name] = n_rays / warm["render_seconds"]
+        gold_budgets = {f: gold[f"{name}_budget_{f}"].item()
+                        for f in BUDGET_FIELDS}
+        gold_warnings = [str(w) for w in gold[f"{name}_warnings"]]
+        map_err = {key: float(np.abs(np.concatenate(
+            [f[key] for f in res["maps"]])[idx] - gold[f"{name}_{key}"]).max())
+            for key in ("rgb", "semantics", "instances", "depth")}
+        emit({"phase": "options_r5b", "option": name, "card": card,
+              "launches": launches[name],
+              "budgets": {f: getattr(res["rcfg"], f) for f in BUDGET_FIELDS},
+              "golden_budgets": gold_budgets, "map_max_abs_err": map_err,
+              **{k: res[k] for k in ("pq_scene", "pq_masked", "sq", "rq",
+                                     "budget_tail", "head_tail", "warnings")},
+              "golden": {k: float(gold[f"{name}_{k}"]) for k in (
+                  "pq_scene", "pq_masked", "sq", "rq")},
+              "golden_warnings": gold_warnings,
+              "render_seconds": res["render_seconds"],
+              "warm_render_seconds": warm["render_seconds"],
+              "warm_rays_per_second": rates[name],
+              "production_warm_rays_per_second":
+                  production_warm_rays_per_second,
+              "seconds": seconds})
+        for run in (res, warm):
+            got = {f: getattr(run["rcfg"], f) for f in BUDGET_FIELDS}
+            if got != gold_budgets:
+                bad.append(f"{name}: budgets {got}, golden {gold_budgets}")
+            if ([guardrail(m) for m in run["warnings"]]
+                    != [guardrail(m) for m in gold_warnings]):
+                bad.append(f"{name}: warnings {run['warnings']}, golden "
+                           f"{gold_warnings}")
+            for key in ("pq_scene", "pq_masked"):
+                if not abs(run[key] - float(gold[f"{name}_{key}"])) <= PQ_TOL:
+                    bad.append(f"{name}: {key} {run[key]}, golden "
+                               f"{float(gold[f'{name}_{key}'])}")
+        bad += [f"{name}: {key} map differs by {err}"
+                for key, err in map_err.items() if not err <= BF16_MAP_TOL]
+        k1 = (launches[name]["sample_density_brick"].get("float32", 0)
+              + launches[name]["sample_density_brick_span"].get("float32", 0))
+        if k1 < 1:
+            bad.append(f"{name}: no float32 launch of the density kernel")
+        if (name == "span" and launches[name]["sample_density_brick_span"]
+                .get("float32", 0) < 1):
+            bad.append("span: no float32 launch of the span form")
+    emit({"phase": "options_r5b", "card": card, "failures": bad,
+          "seconds": time.perf_counter() - t_phase})
+    print("options_r5b warm rays/s: " + ", ".join(
+        f"{k} {v:.0f}" for k, v in rates.items())
+        + f" (production {production_warm_rays_per_second:.0f}) on {card}",
+        flush=True)
+    if bad:
+        raise AssertionError(f"options_r5b differs from the JAX golden: {bad}")
     return launches
 
 
@@ -1708,6 +1924,9 @@ def kernel_line(records, launches):
                     .get(dtype, 0),
                     cli_r5b_launches=launches["cli"][kname].get(dtype, 0))
             entry["tools_r5b_launches"] = launches["tools"][kname].get(dtype, 0)
+            entry["options_r5b_launches"] = {
+                name: counts[kname].get(dtype, 0)
+                for name, counts in launches["options"].items()}
             entry["ddp_r5b_launches"] = sum(rank[kname].get(dtype, 0)
                                             for rank in launches["ddp"])
             loop = records.get((kname, "loop_chunk", dtype))
@@ -1725,6 +1944,23 @@ def kernel_line(records, launches):
                              cli_chunk_library_ms=cli["library_ms"],
                              cli_chunk_max_abs_err=cli["max_abs_err"])
             entries.append(entry)
+    kname = "sample_density_brick_span"
+    for dtype in DTYPES:
+        rec = records[(kname, "span_chunk", dtype)]
+        entries.append({
+            "name": f"{kname}_{'f32' if dtype == 'float32' else 'bf16'}",
+            "dtype": dtype, "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": SPAN_REPLACES,
+            "launches": launches["options"]["span"][kname].get(dtype, 0),
+            "max_abs_err": max(rec_["max_abs_err"] for (k, _, d), rec_
+                               in records.items() if k == kname and d == dtype),
+            **{k: rec[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                   "library_ms", "l2_warm_ms", "fused_ms")},
+            "random_ms": records[(kname, "random", dtype)]["ms"],
+            "random_bound_ms": records[(kname, "random", dtype)]["bound_ms"],
+            "options_r5b_launches": {
+                name: counts[kname].get(dtype, 0)
+                for name, counts in launches["options"].items()}})
     return {"kernels": entries}
 
 
@@ -1746,7 +1982,8 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN, STAGE_GOLDEN,
-                   CLI_GOLDEN, TOOLS_GOLDEN, ROOT / KERNEL_SOURCE):
+                   CLI_GOLDEN, TOOLS_GOLDEN, OPTIONS_GOLDEN,
+                   ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
                   "the repository", file=sys.stderr)
@@ -1757,9 +1994,10 @@ def main() -> int:
     records = phase_kernels()
     dense_launches, dense_warm_rays_per_second = phase_main()
     launches = {"float32": dense_launches,
-                "bfloat16": phase_main_bf16_atlas(),
-                "production": phase_main_production(
-                    dense_warm_rays_per_second)}
+                "bfloat16": phase_main_bf16_atlas()}
+    launches["production"], production_warm_rays_per_second = \
+        phase_main_production(dense_warm_rays_per_second)
+    launches["options"] = phase_options_r5b(production_warm_rays_per_second)
     phase_train_r5b(args.profile)
     phase_stage_r5b()
     launches["train_loop"], loop_records = phase_train_loop_r5b()

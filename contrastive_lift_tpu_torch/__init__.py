@@ -8,12 +8,12 @@ without JAX.
 
 Ported so far: checkpoints (with optimizer state), the TensoRF field and
 heads, the brick-atlas density kernel (``csrc/brick_interp.cu``, hand-written
-for ``sm_90a``), the dense and production renders, mean-shift clustering and
-PQ^scene, and one training step (``train/step.py::make_train_step``: losses,
-both Adam chains, the slow-fast EMA, the samplers).
-Entry points take ``device=`` (default ``"cuda"``) and never fall back to the
-CPU on their own; options of the JAX functions that are not ported yet raise
-``NotImplementedError``.
+for ``sm_90a``, with its span form), the dense and production renders with
+every render option, mean-shift and HDBSCAN clustering and PQ^scene, the
+training step and loop, the CLIs and tools, and data parallel training and
+rendering. Entry points take ``device=`` (default ``"cuda"``) and never fall
+back to the CPU on their own; what is not ported yet (the distilled-feature
+heads) raises ``NotImplementedError``.
 """
 
 __version__ = "0.1.0"

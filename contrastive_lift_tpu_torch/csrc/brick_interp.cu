@@ -54,6 +54,19 @@
 //   instruction, so the staging saves no bytes and costs a round trip: the
 //   lower the threshold, the slower the kernel on the render's samples
 //   (PERF.md).
+// * sample_density_brick_span(atlas, xyz [S,T,3], W): the span form of the
+//   JAX package's opt-in span gathers,
+//   contrastive_lift_tpu/ops/fused_grid.py::sample_density_brick_span. The
+//   T samples of a span (a sub-segment of one ray) lie along a line, so
+//   their bricks form at most W runs, and the JAX function reads W atlas
+//   rows a span instead of T. Here a warp takes min(32/T, 16/W) spans, T
+//   lanes each; the first sample of each run copies the run's row whole
+//   into shared memory with 16-B cp.async copies, and every sample reads its
+//   8 corner lanes there, with the fused form's arithmetic: where no run is
+//   clamped the values are the fused form's bit for bit. A span with more
+//   brick changes than W-1 is clamped as JAX clamps it (its last run reads
+//   the largest brick among its samples). Simple, not tuned: it moves whole
+//   rows where the fused form moves 8 lanes a sample (PERF.md).
 //
 // Built by nvcc into a shared library with a plain C interface and bound with
 // ctypes (contrastive_lift_tpu_torch/ops/brick_interp.py). Each entry point
@@ -463,28 +476,144 @@ __global__ void __launch_bounds__(kThreads)
   cp_async_wait<0>();
 }
 
+// ---- sample_density_brick_span -----------------------------------------------
+
+// A warp handles min(32 / T, kSpanSlots / W) spans at once, T consecutive
+// lanes per span, and stages up to W atlas rows for each of them.
+constexpr int kSpanWarps = 4;
+constexpr int kSpanThreads = 32 * kSpanWarps;
+constexpr int kSpanSlots = 16;
+
+// xyz [n_spans, T, 3] -> out [n_spans, T]: the T samples of a span lie
+// consecutively along a ray, so their bricks form runs. Lane j of a span's
+// lanes takes sample j: its run is the count of brick changes among samples
+// 1..j, clamped to W-1 as in the JAX function; the first sample of each run
+// copies the run's row (for the clamped last run, the largest brick among its
+// samples, JAX's max) whole into the run's shared-memory slot, and every
+// sample reads its 8 corner lanes there. A run that no sample starts is not
+// copied and no sample reads its slot.
+template <typename T>
+__global__ void __launch_bounds__(kSpanThreads)
+    sample_density_brick_span_kernel(const T* __restrict__ atlas,
+                                     const float* __restrict__ xyz,
+                                     float* __restrict__ out, int64_t n_spans,
+                                     int span_len, int rows_per_span, int gx,
+                                     int gy, int gz, float splus_shift) {
+  constexpr unsigned kAll = 0xffffffffu;
+  constexpr int kE = kChunkElems<T>;
+  constexpr int kRowChunks = kLanes / kE;
+  __shared__ __align__(16) uint4 s_rows[kSpanWarps][kSpanSlots][kLanes / 4];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int W = rows_per_span;
+  const int per_warp = min(32 / span_len, kSpanSlots / W);
+  const int seg = lane / span_len;
+  const int j = lane - seg * span_len;
+  const bool in_seg = seg < per_warp;
+  // the lanes of this lane's span
+  const unsigned seg_lanes =
+      !in_seg ? 0u
+              : (span_len == 32 ? kAll
+                                : ((1u << span_len) - 1u) << (seg * span_len));
+  const unsigned upto = (2u << lane) - 1u;  // lanes 0..lane
+  const float g[3] = {static_cast<float>(gx), static_cast<float>(gy),
+                      static_cast<float>(gz)};
+  const int by = (gy - 1 + 3) / 4;
+  const int bz = (gz - 1 + 3) / 4;
+  const int64_t n_groups = (n_spans + per_warp - 1) / per_warp;
+  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSpanWarps;
+  for (int64_t grp = static_cast<int64_t>(blockIdx.x) * kSpanWarps + warp;
+       grp < n_groups; grp += stride) {
+    const int64_t span = grp * per_warp + seg;
+    const bool live = in_seg && span < n_spans;
+    const int64_t s = span * span_len + j;
+    float f[3] = {0.0f, 0.0f, 0.0f};
+    int brick = -1;
+    if (live) brick = brick_row(g, by, bz, xyz + 3 * s, f);
+    const int prev = __shfl_up_sync(kAll, brick, 1);
+    const bool moves = live && j > 0 && brick != prev;
+    const int run_free = __popc(__ballot_sync(kAll, moves) & upto & seg_lanes);
+    const int run = min(run_free, W - 1);
+    // the largest brick among this and the later samples of the span that
+    // fall in the last (clamped) run
+    int top = (live && run == W - 1) ? brick : -1;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const int o = __shfl_down_sync(kAll, top, d);
+      if (j + d < span_len) top = max(top, o);
+    }
+    const int slot = seg * W + run;
+    const bool starts = live && (j == 0 || moves) && run_free < W;
+    const int row = run_free == W - 1 ? top : brick;
+    unsigned stagers = __ballot_sync(kAll, starts);
+    while (stagers != 0u) {
+      const int src = __ffs(stagers) - 1;
+      stagers &= stagers - 1u;
+      const int r = __shfl_sync(kAll, row, src);
+      const int sl = __shfl_sync(kAll, slot, src);
+      if (lane < kRowChunks) {
+        cp_async16(&s_rows[warp][sl][lane],
+                   atlas + static_cast<int64_t>(r) * kLanes + lane * kE);
+      }
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncwarp();  // the staged rows are in shared memory
+    if (live) {
+      const Cell c = cell_of(f[0], f[1], f[2]);
+      float value = 0.0f;
+      if (has_weight(c)) {
+        const T* srow = reinterpret_cast<const T*>(s_rows[warp][slot]);
+        float v[8];
+#pragma unroll
+        for (int p = 0; p < 4; ++p) {
+          const int l = c.base + pair_offset(p);
+          v[2 * p] = smem_elem<T>(srow, l);
+          v[2 * p + 1] = smem_elem<T>(srow, l + 1);
+        }
+        value = blend(c, v);
+      }
+      out[s] = value + splus_shift;
+    }
+    __syncwarp();  // every lane has read its slot before the next copies
+  }
+}
+
 inline unsigned int blocks_for(int64_t n) {
   return static_cast<unsigned int>((n + kBlockSamples - 1) / kBlockSamples);
 }
 
-// Blocks of sample_density_brick_kernel<T> for n samples: one wave of as
-// many as the device keeps resident (found once per device), fewer when n
-// needs fewer.
-template <typename T>
-unsigned int resident_blocks(int64_t n) {
-  static int per_device[64] = {};
+// At most `needed` blocks of `kernel` at `threads` a block: one wave of as
+// many as the device keeps resident (found once per device into `cache`).
+template <typename Kernel>
+unsigned int resident_blocks(Kernel kernel, int threads, int64_t needed,
+                             int (&cache)[64]) {
   int dev = 0;
   cudaGetDevice(&dev);
-  int& cap = per_device[dev & 63];
+  int& cap = cache[dev & 63];
   if (cap == 0) {
     int sms = 0, per_sm = 0;
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, sample_density_brick_kernel<T>, kThreads, 0);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, 0);
     cap = sms * per_sm > 0 ? sms * per_sm : 1;
   }
-  const int64_t need = (n + kWarps * kTile - 1) / (kWarps * kTile);
-  return static_cast<unsigned int>(need < cap ? need : cap);
+  return static_cast<unsigned int>(needed < cap ? needed : cap);
+}
+
+// Blocks of sample_density_brick_kernel<T> for n samples.
+template <typename T>
+unsigned int density_blocks(int64_t n) {
+  static int cache[64] = {};
+  return resident_blocks(sample_density_brick_kernel<T>, kThreads,
+                         (n + kWarps * kTile - 1) / (kWarps * kTile), cache);
+}
+
+// Blocks of sample_density_brick_span_kernel<T> for n_groups warp groups.
+template <typename T>
+unsigned int span_blocks(int64_t n_groups) {
+  static int cache[64] = {};
+  return resident_blocks(sample_density_brick_span_kernel<T>, kSpanThreads,
+                         (n_groups + kSpanWarps - 1) / kSpanWarps, cache);
 }
 
 }  // namespace
@@ -510,14 +639,39 @@ extern "C" int sample_density_brick_launch(const void* atlas, int atlas_bf16,
                                            float splus_shift, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (atlas_bf16) {
-    sample_density_brick_kernel<Bf16><<<resident_blocks<Bf16>(n), kThreads, 0,
+    sample_density_brick_kernel<Bf16><<<density_blocks<Bf16>(n), kThreads, 0,
                                         s>>>(
         static_cast<const Bf16*>(atlas), xyz, out, n, gx, gy, gz, splus_shift);
   } else {
-    sample_density_brick_kernel<float><<<resident_blocks<float>(n), kThreads,
+    sample_density_brick_kernel<float><<<density_blocks<float>(n), kThreads,
                                          0, s>>>(
         static_cast<const float*>(atlas), xyz, out, n, gx, gy, gz,
         splus_shift);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// xyz [n_spans, span_len, 3] -> out [n_spans, span_len]; span_len in
+// [1, 32] and rows_per_span in [2, 16] (the wrapper checks).
+extern "C" int sample_density_brick_span_launch(
+    const void* atlas, int atlas_bf16, const float* xyz, float* out,
+    int64_t n_spans, int span_len, int rows_per_span, int gx, int gy, int gz,
+    float splus_shift, void* stream) {
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int per_warp = (32 / span_len) < (kSpanSlots / rows_per_span)
+                           ? 32 / span_len
+                           : kSpanSlots / rows_per_span;
+  const int64_t n_groups = (n_spans + per_warp - 1) / per_warp;
+  if (atlas_bf16) {
+    sample_density_brick_span_kernel<Bf16>
+        <<<span_blocks<Bf16>(n_groups), kSpanThreads, 0, s>>>(
+            static_cast<const Bf16*>(atlas), xyz, out, n_spans, span_len,
+            rows_per_span, gx, gy, gz, splus_shift);
+  } else {
+    sample_density_brick_span_kernel<float>
+        <<<span_blocks<float>(n_groups), kSpanThreads, 0, s>>>(
+            static_cast<const float*>(atlas), xyz, out, n_spans, span_len,
+            rows_per_span, gx, gy, gz, splus_shift);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -9,9 +9,11 @@ gate's ``--atlas_dtype`` does, an fp32 atlas); ``run_production`` with the
 gate's production point (``production_config``: ``render_frames`` defaults,
 top-8 bf16 heads) in the gate's 4,096-ray chunks. Both return the maps and
 the scores, so a run on the card can be held against the JAX package's
-numbers. ``render_chunk`` and ``production_chunk`` give the density kernel's
-inputs for one chunk of each render, for timing the kernel on the render's
-own samples.
+numbers. ``run_production(option=)`` renders the production point with one
+render option of ``OPTIONS`` (the L1 cascade, no termination, iter or rank
+head selection, head dedup, span gathers, baked heads). ``render_chunk``
+and ``production_chunk`` give the density kernel's inputs for one chunk of
+each render, for timing the kernel on the render's own samples.
 
 ``write_mos_scene`` and ``cli_run_dir`` lay r5b's synthetic scene and
 checkpoint out as files, so that the render and evaluate CLIs read them as
@@ -69,6 +71,21 @@ BUDGET_FIELDS = ("max_segments", "max_subsegments", "max_subsegments_light",
                  "term_first", "term_fraction", "head_term_first",
                  "head_term_fraction", "occ_group_l1", "occ_group_l2",
                  "l2_flat_group", "use_l1", "head_tail_complete")
+# the opt-in render options, each rendered at the production point with one
+# change: (RenderConfig fields set before render_frames, render_frames
+# keyword arguments). "l1" is the render CLI's --l1, "no_term" its --no-term
+# (on r5b the calibration then picks heavy/light bucketing); "dedup" keeps 6
+# unique cells of the 8 head samples; "span" reads 4 atlas rows per
+# sub-segment of 8 samples (the least r5b's step admits)
+OPTIONS = {
+    "l1": ({}, {"l2_only": False}),
+    "no_term": ({}, {"termination": False}),
+    "iter": ({"head_select": "iter"}, {}),
+    "rank": ({"head_select": "rank"}, {}),
+    "dedup": ({"head_dedup_cells": 6}, {}),
+    "span": ({"fine_span_rows": 4}, {}),
+    "baked": ({}, {"bake_heads": True}),
+}
 
 
 def e2e_scene(image_dim=(48, 64), num_train=24, checker_freq=40.0):
@@ -238,37 +255,45 @@ def _pass_a_positions(params, mcfg, rcfg, state_r, frames, rays, dev):
 
 
 def production_chunk(ckpt, scene, device="cuda", frame: int = 0,
-                     n_rays: int = PRODUCTION_CHUNK):
+                     n_rays: int = PRODUCTION_CHUNK, option: str = None):
     """The density kernel's inputs for pass A of the first chunk of
-    ``run_production``'s render of val frame ``frame``: (dense pre-activation
-    density grid, softplus shift, the [n_rays * term_first * sub_stride, 3]
+    ``run_production``'s render of val frame ``frame`` (with the render
+    config changes of ``OPTIONS[option]``): (dense pre-activation density
+    grid, softplus shift, the [n_rays * term_first * sub_stride, 3]
     normalized coordinates exactly as ``_fine_density`` passes them to
-    ``sample_density_brick``, out-of-box ones included). The budgets are
-    calibrated as ``render_frames`` calibrates them. ``n_rays`` is at most the
-    frame's ray count."""
+    ``sample_density_brick``, out-of-box ones included; under the "span"
+    option, viewed as [n_rays, term_first, sub_stride, 3], what it passes to
+    ``sample_density_brick_span``). The budgets are calibrated as
+    ``render_frames`` calibrates them. ``n_rays`` is at most the frame's ray
+    count."""
     dev = resolve_device(device)
     _, params, mcfg, rcfg, state_r, _ = load_production(ckpt, scene, dev)
+    if option:
+        rcfg = dataclasses.replace(rcfg, **OPTIONS[option][0])
     rays = scene.val_frames[frame].rays.astype(np.float32)[:n_rays]
     return _pass_a_positions(params, mcfg, rcfg, state_r, scene.val_frames,
                              rays, dev)
 
 
 def run_production(ckpt, scene, device="cuda", bandwidth: float = BANDWIDTH,
-                   chunk: int = PRODUCTION_CHUNK) -> dict:
+                   chunk: int = PRODUCTION_CHUNK, option: str = None) -> dict:
     """The production render of ``scene``'s val frames from checkpoint
-    ``ckpt`` (``render_frames`` with its defaults at ``production_config``),
-    then clustering and PQ^scene. Returns the maps, the scores, the render
-    config the chunks used (``rcfg``; its ``BUDGET_FIELDS`` are the
-    calibrated ones), the guardrail maxima, the guardrail warnings raised and
-    the seconds each stage took."""
+    ``ckpt`` (``render_frames`` with its defaults at ``production_config``,
+    or with the one change of ``OPTIONS[option]``), then clustering and
+    PQ^scene. Returns the maps, the scores, the render config the chunks
+    used (``rcfg``; its ``BUDGET_FIELDS`` are the calibrated ones), the
+    guardrail maxima, the guardrail warnings raised and the seconds each
+    stage took."""
     cfg, params, mcfg, rcfg, state_r, meta = load_production(ckpt, scene,
                                                              device)
+    changes, render_kw = OPTIONS[option] if option else ({}, {})
+    rcfg = dataclasses.replace(rcfg, **changes)
     t0 = time.perf_counter()
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
         rep = render_frames_report(params, mcfg, rcfg, state_r,
                                    scene.val_frames, chunk=chunk,
-                                   device=device)
+                                   device=device, **render_kw)
     t_render = time.perf_counter() - t0
     t0 = time.perf_counter()
     onehot = cluster_maps(rep.maps, scene, bandwidth, cfg.max_instances,

@@ -4,9 +4,10 @@ Port of ``load_model_for_inference``, ``render_frames`` and
 ``render_checkpoint_outputs`` from ``contrastive_lift_tpu/inference/
 render.py``. The grids (with the empty-space-skipping tables when the
 config skips) are built once per call, the budgets are calibrated on a
-probe of the frames' rays, every chunk of rays renders through
-``renderer.render_rays`` on the device, and the maps come back as numpy
-arrays. ``render_checkpoint_outputs`` then keeps the fast half of the
+probe of the frames' rays, the semantic and instance heads are baked on
+request (``bake_heads``, ``renderer/bake.py``), every chunk of rays renders
+through ``renderer.render_rays`` on the device, and the maps come back as
+numpy arrays. ``render_checkpoint_outputs`` then keeps the fast half of the
 slow-fast embeddings, clusters them and writes the reference's artifact
 tree: ``instance_features.npy``, ``thing_features.npy``,
 ``slow_features.npy``, ``pred_semantics/*.png`` (uint8),
@@ -43,6 +44,7 @@ from ..io.convert import params_from_numpy
 from ..ops.fused_grid import FusedGrids, build_render_grids
 from ..parallel import mesh as pmesh
 from ..renderer import render as R
+from ..renderer.bake import bake_head_tables
 from ..utils import geometry as geo
 from ..utils.device import resolve_device
 from ..utils.png import write_png
@@ -99,7 +101,6 @@ def prepare_render(params, mcfg, rcfg, state_r, frames: List[FrameData],
     group sizes; and, with ``auto_budget``, budgets calibrated on a probe of
     up to 8 frames (4,096 rays), on a ``mesh`` by rank 0 alone and
     broadcast."""
-    R.check_ported(rcfg)
     if not use_fused:
         if tail_complete is None:
             tail_complete = rcfg.head_topk is not None
@@ -138,10 +139,11 @@ class RenderReport(NamedTuple):
     rcfg: R.RenderConfig    # the config the chunks rendered with
     budget_tail: float      # max over chunks of render_rays' guardrails
     head_tail: float
+    dedup_tail: float
 
 
 def _guardrail_warnings(rcfg, budget_tail: float, head_tail: float,
-                        head_tail_eps: float) -> None:
+                        dedup_tail: float, head_tail_eps: float) -> None:
     """The warnings ``render_frames`` raises on the guardrails, with the JAX
     package's thresholds."""
     if budget_tail > 1e-2:
@@ -150,6 +152,12 @@ def _guardrail_warnings(rcfg, budget_tail: float, head_tail: float,
             f"segment carries weight {budget_tail:.3g} on some ray — rendered "
             f"views exceed the calibration probe; raise max_segments/"
             f"max_subsegments or re-probe with these frames")
+    if dedup_tail > 0:
+        warnings.warn(
+            f"head_dedup_cells budget exceeded: {dedup_tail:.3%} of live "
+            f"head samples hit an overflowed unique-cell run and read a "
+            f"clamped row — raise head_dedup_cells or re-calibrate with "
+            f"these frames")
     if rcfg.head_topk is not None and rcfg.head_tail_complete:
         # completion renormalizes the dropped mass: warn only far outside
         # what the PQ gate adjudicated
@@ -161,7 +169,9 @@ def _guardrail_warnings(rcfg, budget_tail: float, head_tail: float,
                 f"completion renormalizes it, but this operating point "
                 f"is far outside the gate-adjudicated regime; re-run "
                 f"tools/pq_fidelity_gate.py at this k or raise head_topk")
-    elif rcfg.head_term_first > 0:
+    elif rcfg.head_term_first > 0 or rcfg.head_select == "rank":
+        # head_tail is a dropped-mass bound here, which the calibration
+        # bounds by head_tail_eps
         if head_tail > max(2 * rcfg.raymarch_weight_thres, head_tail_eps):
             warnings.warn(
                 f"head dropped-mass bound exceeded: a ray drops "
@@ -195,8 +205,6 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
     (the others' are None)."""
     if mesh is not None and chunk % mesh.size:
         raise ValueError(f"chunk={chunk} must divide mesh size {mesh.size}")
-    if bake_heads:
-        raise NotImplementedError("render_frames: bake_heads is not ported")
     dev = resolve_device(device)
     if state_r.step_size.device != dev:
         raise ValueError(f"render state is on {state_r.step_size.device}, "
@@ -213,6 +221,10 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
             termination=termination, head_term=head_term, l2_only=l2_only,
             head_tail_eps=head_tail_eps, tail_complete=tail_complete,
             use_fused=use_fused, mesh=mesh)
+        if bake_heads and fused is not None and fused.slot_map is not None:
+            fused = bake_head_tables(params, mcfg, fused)
+        # the span gathers' exactness, checked once before any chunk
+        R.validate_fine_span(rcfg, state_r)
         for fi, f in enumerate(frames):
             js = [j for j in range(first[fi], first[fi + 1]) if j in mine]
             rays_dev = (torch.from_numpy(_pad_to_chunks(f.rays, chunk)).to(dev)
@@ -221,7 +233,8 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
                 params, mcfg, rcfg, state_r,
                 rays_dev[(j - first[fi]) * chunk:][:chunk], fused=fused)
                 for j in js}
-            tails.extend(torch.stack([o["budget_tail"], o["head_tail"]])
+            tails.extend(torch.stack([o["budget_tail"], o["head_tail"],
+                                      o["dedup_tail"]])
                          for o in frame.values())
             # a frame's maps leave the card once its chunks are rendered
             outs.update({j: {k: o[k].cpu().numpy() for k in MAP_KEYS}
@@ -232,7 +245,7 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
         outs = pmesh.gather_chunks(mesh, outs,
                                    dst=None if maps_on_every_rank else 0)
         tail = (torch.stack(tails).amax(dim=0) if tails
-                else torch.zeros(2, device=dev))
+                else torch.zeros(3, device=dev))
         tails = [pmesh.all_reduce_(mesh, tail, "max")]
     results = None
     if mesh is None or maps_on_every_rank or mesh.rank == 0:
@@ -240,11 +253,12 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
                                        range(first[fi], first[fi + 1])])
                     [:len(f.rays)] for k in MAP_KEYS}
                    for fi, f in enumerate(frames)]
-    budget_tail, head_tail = (torch.stack(tails).amax(dim=0).tolist()
-                              if tails else (0.0, 0.0))
+    budget_tail, head_tail, dedup_tail = (
+        torch.stack(tails).amax(dim=0).tolist() if tails else (0.0, 0.0, 0.0))
     if tails:
-        _guardrail_warnings(rcfg, budget_tail, head_tail, head_tail_eps)
-    return RenderReport(results, rcfg, budget_tail, head_tail)
+        _guardrail_warnings(rcfg, budget_tail, head_tail, dedup_tail,
+                            head_tail_eps)
+    return RenderReport(results, rcfg, budget_tail, head_tail, dedup_tail)
 
 
 def _pad_to_chunks(rays: np.ndarray, chunk: int) -> np.ndarray:
@@ -276,8 +290,11 @@ def render_frames(params, mcfg, rcfg, state_r, frames: List[FrameData],
     chunks on each rank and returns every map on every rank (see the module
     docstring); ``chunk`` must divide over it, as in the JAX package.
     Guardrail warnings are raised as in the JAX package. ``use_fused=False``
-    samples the VM factors directly. The unported options (``bake_heads``,
-    and those ``renderer.render.check_ported`` names) raise."""
+    samples the VM factors directly. ``bake_heads`` reads the semantic and
+    instance heads from node tables baked after the calibration, on the
+    compacted (skipping) grids only, as in the JAX package; a render
+    config's ``fine_span_rows`` is validated against the step
+    (``renderer.render.validate_fine_span``, ``ValueError``)."""
     return render_frames_report(
         params, mcfg, rcfg, state_r, frames, chunk=chunk, progress=progress,
         use_fused=use_fused, mesh=mesh, data_axis=data_axis,

@@ -7,13 +7,18 @@ dense-path sample goes through. The kernel is ``csrc/brick_interp.cu``, CUDA
 C++ for ``sm_90a``; it is compiled by ``nvcc`` into ``_build/`` at first use
 (again whenever the source changes) and bound with ``ctypes``.
 
-Two entry points:
+Three entry points:
 
 * ``brick_interp(rows [P,128], frac [P,3]) -> [P]``: the literal counterpart
   of the Pallas kernel;
 * ``sample_density_brick(atlas [B,128], xyz [P,3], grid_dim, splus_shift)``:
   the fused form the renderer calls, which finds each sample's atlas row
-  itself.
+  itself;
+* ``sample_density_brick_span(atlas, xyz [R,K,T,3], grid_dim, splus_shift,
+  rows_per_span)``: the span form, port of the JAX package's
+  ``ops/fused_grid.py::sample_density_brick_span`` (the renderer's opt-in
+  ``fine_span_rows``): the T consecutive samples of each of a ray's K spans
+  read at most ``rows_per_span`` atlas rows.
 
 Rows and atlas are float32 or bfloat16, as the TPU kernel takes them
 (``pallas_interp.py`` casts its rows to float32 in the kernel body); the
@@ -92,6 +97,9 @@ def _library():
         lib.sample_density_brick_launch.argtypes = [p, i32, p, p, i64, i32,
                                                     i32, i32, ctypes.c_float, p]
         lib.sample_density_brick_launch.restype = i32
+        lib.sample_density_brick_span_launch.argtypes = [
+            p, i32, p, p, i64, i32, i32, i32, i32, i32, ctypes.c_float, p]
+        lib.sample_density_brick_span_launch.restype = i32
         _lib = lib
     return _lib
 
@@ -117,8 +125,8 @@ def _check(name: str, t: torch.Tensor, width: int, device: torch.device):
 
 def _check_rows(name: str, t: torch.Tensor, device: torch.device):
     _check(name, t, LANES, device)
-    # both kernels read rows in aligned 16-B chunks (brick_interp its corner
-    # pairs, sample_density_brick the rows a warp stages whole)
+    # the kernels read rows in aligned 16-B chunks (brick_interp its corner
+    # pairs, sample_density_brick and its span form the rows they stage)
     if t.data_ptr() % 16:
         raise ValueError(f"{name} must start at a 16-byte aligned address")
 
@@ -254,7 +262,109 @@ def sample_density_brick(atlas: torch.Tensor, xyz: torch.Tensor, grid_dim,
     return out
 
 
-KERNELS = (brick_interp, sample_density_brick)
+# span forms the kernel takes: samples a span, atlas rows a span
+MAX_SPAN_LEN = 32
+MAX_SPAN_ROWS = 16
+
+
+def span_runs(grid_dim, xyz: torch.Tensor, rows_per_span: int):
+    """The runs of [R,K,T,3] spans, as the JAX function finds them: (moves
+    [R,K,T], each sample's count of brick changes before it in its span;
+    run_row [R,K,W], the atlas row of each run once the count is clamped to
+    ``rows_per_span`` - 1: the largest brick among its samples, -1 for a
+    run no sample falls in; frac [R*K*T,3], each sample's in-brick
+    position)."""
+    R, K, T, _ = xyz.shape
+    row, frac = brick_coords(grid_dim, xyz.reshape(-1, 3))
+    row = row.reshape(R, K, T)
+    moves = torch.nn.functional.pad(
+        torch.cumsum(row[..., 1:] != row[..., :-1], dim=-1), (1, 0))
+    run = torch.clamp(moves, max=rows_per_span - 1)
+    eq = run[..., None] == torch.arange(rows_per_span, device=xyz.device)
+    run_row = torch.where(eq, row[..., None], -1).amax(dim=2)
+    return moves, run_row, frac
+
+
+def sample_density_brick_span_reference(atlas: torch.Tensor, xyz: torch.Tensor,
+                                        grid_dim, splus_shift: float,
+                                        rows_per_span: int) -> torch.Tensor:
+    """Plain version of ``sample_density_brick_span``, the JAX function's
+    algorithm: each sample reads the row of its run (``span_runs``; row 0
+    for an empty run, which no sample reads), selected by a masked sum that
+    adds exact zeros, then the 128-lane hat reduction of
+    ``sample_density_brick_reference``, so where no run is clamped the
+    values are that function's bit for bit. ``REFERENCE_STEP`` samples'
+    rays at a time."""
+    _check_rows_dtype("atlas", atlas)
+    _check_positions_dtype("xyz", xyz)
+    R, K, T, _ = xyz.shape
+    W = rows_per_span
+    out = []
+    for part in torch.split(xyz, max(1, REFERENCE_STEP // max(1, K * T))):
+        moves, run_row, frac = span_runs(grid_dim, part, W)
+        run = torch.clamp(moves, max=W - 1)
+        rows = atlas[torch.clamp(run_row, min=0)].to(torch.float32)
+        sel = torch.zeros(part.shape[:3] + (LANES,), dtype=torch.float32,
+                          device=xyz.device)
+        for w in range(W):
+            sel = sel + torch.where((run == w)[..., None],
+                                    rows[:, :, w, None, :], 0.0)
+        out.append((brick_interp_reference(sel.reshape(-1, LANES), frac)
+                    + splus_shift).reshape(part.shape[:3]))
+    return torch.cat(out) if len(out) != 1 else out[0]
+
+
+def sample_density_brick_span(atlas: torch.Tensor, xyz: torch.Tensor,
+                              grid_dim, splus_shift: float,
+                              rows_per_span: int) -> torch.Tensor:
+    """Pre-activation density + shift at [R,K,T,3] float32 coords in [-1,1]
+    whose T samples of each (ray, span) are consecutive along the ray, from
+    ``rows_per_span`` atlas rows per span; [R,K,T] float32 out. The kernel
+    takes T up to ``MAX_SPAN_LEN`` and ``rows_per_span`` up to
+    ``MAX_SPAN_ROWS``."""
+    if atlas.device.type == "cpu":
+        return sample_density_brick_span_reference(atlas, xyz, grid_dim,
+                                                   splus_shift, rows_per_span)
+    if atlas.device.type != "cuda":
+        raise ValueError(f"sample_density_brick_span runs on cuda or cpu, "
+                         f"not {atlas.device}")
+    _check_rows_dtype("atlas", atlas)
+    _check_positions_dtype("xyz", xyz)
+    _check_rows("atlas", atlas, atlas.device)
+    if xyz.dim() != 4 or xyz.shape[3] != 3:
+        raise ValueError(f"xyz must be [R, K, T, 3], got {tuple(xyz.shape)}")
+    if xyz.device != atlas.device:
+        raise ValueError(f"xyz is on {xyz.device}, expected {atlas.device}")
+    if not xyz.is_contiguous():
+        raise ValueError("xyz must be contiguous")
+    R, K, T, _ = xyz.shape
+    if not 1 <= T <= MAX_SPAN_LEN:
+        raise ValueError(f"sample_density_brick_span takes spans of 1 to "
+                         f"{MAX_SPAN_LEN} samples, got {T}")
+    if not 2 <= rows_per_span <= MAX_SPAN_ROWS:
+        raise ValueError(f"sample_density_brick_span takes 2 to "
+                         f"{MAX_SPAN_ROWS} rows a span, got {rows_per_span}")
+    gx, gy, gz = (int(g) for g in grid_dim)
+    bx, by, bz = brick_atlas_dims(grid_dim)
+    if min(gx, gy, gz) < 2 or atlas.shape[0] != bx * by * bz:
+        raise ValueError(f"atlas has {atlas.shape[0]} rows; grid {grid_dim} "
+                         f"needs {bx}*{by}*{bz}")
+    out = torch.empty((R, K, T), dtype=torch.float32, device=atlas.device)
+    if out.numel() == 0:
+        return out
+    lib = _library()
+    with torch.cuda.device(atlas.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = lib.sample_density_brick_span_launch(
+            atlas.data_ptr(), ROW_DTYPES[atlas.dtype], xyz.data_ptr(),
+            out.data_ptr(), R * K, T, int(rows_per_span), gx, gy, gz,
+            float(splus_shift), stream)
+    _raise_on(err, "sample_density_brick_span")
+    _count_launch(sample_density_brick_span, atlas.dtype)
+    return out
+
+
+KERNELS = (brick_interp, sample_density_brick, sample_density_brick_span)
 
 
 def reset_launches():

@@ -280,6 +280,31 @@ def sample_density_brick(fused: FusedGrids, xyz: torch.Tensor,
                                    fused.grid_dim, splus_shift)
 
 
+def span_rows_required(state_units, step_size: float, span_len: int) -> int:
+    """Most distinct bricks that ``span_len`` consecutive ray samples
+    ``step_size`` apart can visit: 1 + the brick-boundary crossings per
+    axis, as if the direction were 1 on every axis (an upper bound).
+    ``state_units``: the voxel size per axis. Host-side, in float64. Port of
+    ``span_rows_required``."""
+    units = np.asarray(state_units, dtype=np.float64)
+    span_vox = float(step_size) * max(span_len - 1, 0) / units
+    return 1 + int(np.sum(np.floor(span_vox / 4.0) + 1))
+
+
+def sample_density_brick_span(fused: FusedGrids, xyz: torch.Tensor,
+                              splus_shift: float,
+                              rows_per_span: int) -> torch.Tensor:
+    """Pre-activation density + shift at [R,K,T,3] coords in [-1,1] whose T
+    samples of each (ray, span) are consecutive along the ray, from
+    ``rows_per_span`` atlas rows a span (the span form of the kernel).
+    Exact only where a span's brick changes fit in ``rows_per_span`` - 1:
+    ``renderer.validate_fine_span`` checks that before a render. Port of
+    ``sample_density_brick_span``."""
+    return bi.sample_density_brick_span(fused.brick_atlas, xyz.contiguous(),
+                                        fused.grid_dim, splus_shift,
+                                        rows_per_span)
+
+
 def _cell_coords(grid_dim, xyz: torch.Tensor):
     g = torch.tensor(grid_dim, dtype=torch.float32, device=xyz.device)
     p = (xyz + 1.0) * 0.5 * (g - 1.0)
@@ -384,4 +409,81 @@ def sample_feature_fused(fused: FusedGrids, name: str,
                 k += 1
     if fused.slot_map is not None:
         out = torch.where(_cell_slot(fused, i)[:, None] > 0, out, 0.0)
+    return out
+
+
+def _fresh_runs(fused: FusedGrids, xyz_n: torch.Tensor, live: torch.Tensor):
+    """(flat cell key [R,S], first sample of each live unique-cell run
+    [R,S]) of time-ordered samples xyz_n [R,S,3]: each axis's cell index is
+    monotone along a ray, so equal-cell live samples are contiguous and no
+    sort is needed. Port of ``_fresh_runs``."""
+    R, S, _ = xyz_n.shape
+    _, gy, gz = fused.grid_dim
+    i, _ = _cell_coords(fused.grid_dim, xyz_n.reshape(-1, 3))
+    key = ((i[:, 0] * (gy - 1) + i[:, 1]) * (gz - 1) + i[:, 2]).reshape(R, S)
+    prev_key = F.pad(key[:, :-1], (1, 0), value=-1)
+    prev_live = torch.cat([torch.zeros_like(live[:, :1]), live[:, :-1]], 1)
+    return key, live & ((key != prev_key) | ~prev_live)
+
+
+def head_dedup_slots(fused: FusedGrids, xyz_n: torch.Tensor,
+                     live: torch.Tensor, cap: int):
+    """Per-ray unique-cell slots for the head feature reads: xyz_n [R,S,3]
+    time-ordered samples, live [R,S] (weight above the head threshold) ->
+    (slot [R,S] in [0, cap), uid [R,cap] the flat cell key of each run,
+    tail = the fraction of live samples whose run index passed cap; 0 means
+    the dedup is exact). Port of ``head_dedup_slots``."""
+    key, fresh = _fresh_runs(fused, xyz_n, live)
+    slotc = torch.cumsum(fresh.to(torch.int64), dim=1) - 1
+    n_live = torch.clamp(torch.sum(live), min=1)
+    tail = (torch.sum(live & (slotc >= cap)).to(torch.float32)
+            / n_live.to(torch.float32))
+    # each run's first sample writes its key to its slot (runs past cap to
+    # a column that is cut off); slots without a run keep key 0
+    col = torch.where(fresh & (slotc < cap), slotc, cap)
+    uid = torch.zeros((key.shape[0], cap + 1), dtype=key.dtype,
+                      device=key.device).scatter_(1, col, key)[:, :cap]
+    return torch.clamp(slotc, 0, cap - 1), uid, tail
+
+
+def head_dedup_run_counts(fused: FusedGrids, xyz_n: torch.Tensor,
+                          live: torch.Tensor) -> torch.Tensor:
+    """Per-ray count of live unique-cell runs (the budget
+    ``head_dedup_slots`` needs). Port of ``head_dedup_run_counts``."""
+    return torch.sum(_fresh_runs(fused, xyz_n, live)[1], dim=1)
+
+
+def sample_feature_dedup(fused: FusedGrids, name: str, uid: torch.Tensor,
+                         slot_k: torch.Tensor,
+                         xyz_k: torch.Tensor) -> torch.Tensor:
+    """Branch features (float32 [R*k, F]) at the top-k samples xyz_k
+    [R,k,3], their grid rows read once per unique cell: uid [R,cap] the
+    cells of ``head_dedup_slots``, slot_k [R,k] each sample's run. The 8
+    corner rows of each unique cell come from the dense grid (zero in a
+    block without a slot) and each sample takes its cell's by an index
+    gather (the JAX function's one-hot product); the corner weights are the
+    sample's own, summed as ``sample_feature_fused`` sums them, so where
+    ``head_dedup_slots`` reported tail 0 the features are that function's
+    bit for bit. Port of ``sample_feature_dedup``."""
+    R, cap = uid.shape
+    k = slot_k.shape[1]
+    _, gy, gz = fused.grid_dim
+    uid_f = uid.reshape(-1)
+    cell = torch.stack([uid_f // ((gz - 1) * (gy - 1)),
+                        (uid_f // (gz - 1)) % (gy - 1), uid_f % (gz - 1)], -1)
+    grid = fused.features[name]
+    base = (cell[:, 0] * gy + cell[:, 1]) * gz + cell[:, 2]
+    rows = torch.stack([grid[base + (dx * gy + dy) * gz + dz]
+                        for dx in (0, 1) for dy in (0, 1) for dz in (0, 1)],
+                       1).reshape(R, cap, 8, -1)
+    ray = torch.arange(R, device=uid.device)[:, None]
+    rows_k = rows[ray, slot_k].reshape(R * k, 8, -1)
+    _, f = _cell_coords(fused.grid_dim, xyz_k.reshape(-1, 3))
+    w = _corner_weights(f)
+    out = 0.0
+    for c in range(8):
+        out = out + rows_k[:, c].to(torch.float32) * w[:, c:c + 1]
+    if fused.slot_map is not None:
+        keep = (_cell_slot(fused, cell) > 0).reshape(R, cap)[ray, slot_k]
+        out = torch.where(keep.reshape(-1, 1), out, 0.0)
     return out

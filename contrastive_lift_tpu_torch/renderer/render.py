@@ -11,10 +11,16 @@ Port of ``contrastive_lift_tpu/renderer/render.py``:
   of ``tools/pq_fidelity_gate.py``);
 * the production path (``coarse_stride`` / ``sub_stride``): the segments or
   sub-segments of each ray are tested against the occupancy tables, the
-  fine density runs only at the nearest occupied ones, optionally in two
-  passes with early termination (``term_first``), and with ``head_topk`` the
-  heads run only on the k heaviest samples per ray, optionally in two phases
-  (``head_term_first``), with tail completion (``head_tail_complete``);
+  fine density runs only at the nearest occupied ones (optionally through
+  the span form of the kernel, ``fine_span_rows``), in two passes with early
+  termination (``term_first``) or with heavy/light ray bucketing
+  (``max_subsegments_light``), and with ``head_topk`` the heads run only on
+  k samples per ray (the heaviest, by a sort or by k argmax passes, or the
+  nearest above the threshold: ``head_select``), optionally in two phases
+  (``head_term_first``), with tail completion (``head_tail_complete``),
+  with their feature rows read once per unique cell (``head_dedup_cells``),
+  or with the semantic and instance heads read from baked node tables
+  (``renderer/bake.py``);
 * training (``is_train`` with random draws): jittered samples and the
   background coin in ``render_rays``, and the stop-gradient instance and
   segment passes (``render_instance_features``, ``render_segment_features``)
@@ -24,7 +30,7 @@ Randomness comes from a ``torch.Generator`` or, so that a run can take the
 JAX package's draws, from the draws themselves (``RayDraws``).
 
 ``RenderConfig`` keeps every field of the JAX config so the two compare field
-by field; ``check_ported`` names the options whose paths are not ported.
+by field.
 """
 from __future__ import annotations
 
@@ -36,9 +42,11 @@ import torch
 
 from ..models import tensorf as tf
 from ..ops.compositing import composite, distortion_loss, raw_to_alpha
-from ..ops.fused_grid import (FusedGrids, sample_coarse_occ,
-                              sample_density_brick, sample_density_fused,
-                              sample_feature_fused, sample_occ_bits_grouped)
+from ..ops.fused_grid import (FusedGrids, head_dedup_slots,
+                              sample_coarse_occ, sample_density_brick,
+                              sample_density_brick_span, sample_density_fused,
+                              sample_feature_dedup, sample_feature_fused,
+                              sample_occ_bits_grouped, span_rows_required)
 
 
 @dataclass(frozen=True)
@@ -60,7 +68,7 @@ class RenderConfig:
     head_topk_semins: Optional[int] = None
     head_dtype: str = "float32"             # float32|bfloat16 head matmuls
     atlas_dtype: str = "float32"            # float32|bfloat16 density atlas
-    # empty-space skipping; the L1 segment level (use_l1) is not ported
+    # empty-space skipping
     coarse_stride: Optional[int] = None
     max_segments: int = 48
     occ_alpha_thres: float = 1e-5
@@ -74,8 +82,8 @@ class RenderConfig:
     l2_flat_group: int = 0
     term_first: int = 0
     term_fraction: float = 0.25
-    # two-phase heads, tail completion; dedup, iter/rank select and span
-    # gathers are not ported
+    # two-phase heads, tail completion, unique-cell dedup, head selection
+    # (sort|iter|rank), atlas rows per span of the fine density
     head_term_first: int = 0
     head_term_fraction: float = 0.25
     head_tail_complete: bool = False
@@ -111,18 +119,6 @@ class RenderConfig:
         if self.atlas_dtype not in ("float32", "bfloat16"):
             raise ValueError(f"atlas_dtype must be 'float32' or 'bfloat16', "
                              f"got {self.atlas_dtype!r}")
-
-
-def check_ported(rcfg: RenderConfig) -> None:
-    """Raise ``NotImplementedError`` naming each set option whose path is not
-    ported."""
-    unported = [name for name in ("head_dedup_cells", "fine_span_rows")
-                if getattr(rcfg, name) is not None]
-    if rcfg.head_select != "sort":
-        unported.append(f"head_select={rcfg.head_select!r}")
-    if unported:
-        raise NotImplementedError(
-            f"RenderConfig options not ported yet: {', '.join(unported)}")
 
 
 class RayDraws(NamedTuple):
@@ -408,20 +404,54 @@ def _fine_density(mcfg, rcfg: RenderConfig, state: RenderState,
                   rays_o, rays_d, t_min, fused: FusedGrids,
                   fine_steps, sample_valid):
     """Exact density at the selected fine samples (through the brick-atlas
-    kernel, or the cell-corner rows of training's grids), then compositing
-    weights. Returns (xyz_n, z_vals, in_box, dists, mids, alpha, weight,
-    bg_weight)."""
+    kernel, its span form with ``fine_span_rows``, or the cell-corner rows
+    of training's grids), then compositing weights. Returns (xyz_n, z_vals,
+    in_box, dists, mids, alpha, weight, bg_weight)."""
     R = rays_o.shape[0]
     z_vals, in_box, xyz_n = fine_positions(state, rays_o, rays_d, t_min,
                                            fine_steps, sample_valid)
-    sigma = torch.where(in_box, _density_at(None, mcfg, fused,
-                                            xyz_n.reshape(-1, 3)).reshape(R, -1),
-                        0.0)
+    if fused.brick_atlas is not None and rcfg.fine_span_rows is not None:
+        # the samples of a span are consecutive along the ray; whether the
+        # rows suffice is checked on the host (validate_fine_span)
+        sigma = _softplus(sample_density_brick_span(
+            fused, xyz_n.reshape(*fine_steps.shape, 3),
+            mcfg.splus_density_shift, rcfg.fine_span_rows)).reshape(R, -1)
+    else:
+        sigma = _density_at(None, mcfg, fused,
+                            xyz_n.reshape(-1, 3)).reshape(R, -1)
+    sigma = torch.where(in_box, sigma, 0.0)
     # per-sample interval = step (uniform marching), as in the dense path
     dists = state.step_size.expand_as(z_vals)
     mids = z_vals + 0.5 * state.step_size
     alpha, weight, bg_weight = raw_to_alpha(sigma, dists * rcfg.distance_scale)
     return xyz_n, z_vals, in_box, dists, mids, alpha, weight, bg_weight
+
+
+def validate_fine_span(rcfg: RenderConfig, state: RenderState) -> None:
+    """Host-side check that ``fine_span_rows`` atlas rows cover every span:
+    the span form is exact only where a span's brick changes fit in
+    ``fine_span_rows`` - 1, which ``span_rows_required`` bounds from the
+    voxel size and the step. Port of ``validate_fine_span``; it raises
+    ``ValueError`` also where the render has no spans (no
+    ``coarse_stride``)."""
+    if rcfg.fine_span_rows is None:
+        return
+    if rcfg.coarse_stride is None:
+        raise ValueError("fine_span_rows gathers the atlas rows of the "
+                         "empty-space-skipping spans; set coarse_stride or "
+                         "disable span gathers (None)")
+    use_sub = (rcfg.sub_stride is not None
+               and rcfg.sub_stride < rcfg.coarse_stride)
+    span_len = rcfg.sub_stride if use_sub else rcfg.coarse_stride
+    units = state.units.cpu().numpy()
+    need = span_rows_required(units, float(state.step_size), int(span_len))
+    if need > rcfg.fine_span_rows:
+        raise ValueError(
+            f"fine_span_rows={rcfg.fine_span_rows} cannot cover the "
+            f"worst-case {need} distinct bricks of a {span_len}-sample span "
+            f"at this step size ({float(state.step_size):.4g} world units, "
+            f"voxels {units}) — raise fine_span_rows to {need} or disable "
+            f"span gathers (None)")
 
 
 def _tail_weight(weight: torch.Tensor, group: int) -> torch.Tensor:
@@ -440,9 +470,13 @@ def _two_level_density(mcfg, rcfg: RenderConfig, state: RenderState,
     (``term_first``): pass A on every ray's first ``term_first``
     sub-segments, pass B on the ``term_fraction`` rays with the largest
     residual transmittance among those with candidates left, spliced by
-    T_B *= T_A. With ``jitter`` [R] (training) the whole sample ladder of a
-    ray moves by ``perturb * jitter`` steps. Port of ``_two_level_density``
-    (its heavy/light bucketing raises).
+    T_B *= T_A, or with heavy/light bucketing (``max_subsegments_light``):
+    the rays in order of occupied candidates, the lightest 1 -
+    ``heavy_fraction`` at ``max_subsegments_light``, the rest at the full
+    budget, the light outputs padded with zero columns to the full width and
+    the rays put back in order. With ``jitter`` [R] (training) the whole
+    sample ladder of a ray moves by ``perturb * jitter`` steps. Port of
+    ``_two_level_density``.
 
     Returns (xyz_n, z_vals, in_box, dists, mids, alpha, weight, bg_weight,
     budget_tail) with K = max_subsegments * sub_stride (or max_segments *
@@ -458,8 +492,9 @@ def _two_level_density(mcfg, rcfg: RenderConfig, state: RenderState,
     if not (use_sub and not rcfg.use_l1):
         seg_idx, seg_valid = _select_segments(mcfg, rcfg, state, rays_o,
                                               rays_d, t_min, fused)
+    needed = None
     if use_sub:
-        fine_steps, sample_valid, _ = _select_subsegments(
+        fine_steps, sample_valid, needed = _select_subsegments(
             mcfg, rcfg, state, rays_o, rays_d, t_min, fused, seg_idx,
             seg_valid)
         group = rcfg.sub_stride
@@ -514,11 +549,30 @@ def _two_level_density(mcfg, rcfg: RenderConfig, state: RenderState,
                 tail, torch.amax(torch.clamp(T_live[order[:R - n_s]], min=0.0)))
         return tuple(merged) + (tail,)
     hn = int(round(R * rcfg.heavy_fraction))
-    if use_sub and 0 < rcfg.max_subsegments_light < k_sub and 0 < hn < R:
-        raise NotImplementedError(
-            "max_subsegments_light > 0 (heavy/light ray bucketing) is not "
-            "ported; render with termination (term_first), as "
-            "render_frames(termination=True) calibrates")
+    k_l = rcfg.max_subsegments_light
+    if use_sub and 0 < k_l < k_sub and 0 < hn < R:
+        # light rays first, heavy last; stable, as jnp.argsort
+        order = torch.argsort(needed, stable=True)
+        inv = torch.argsort(order)
+        fs, sv = fine_steps[order], sample_valid[order]
+        ro, rd, tm = rays_o[order], rays_d[order], t_min[order]
+        nl = R - hn
+        out_l = _fine_density(mcfg, rcfg, state, ro[:nl], rd[:nl], tm[:nl],
+                              fused, fs[:nl, :k_l], sv[:nl, :k_l])
+        out_h = _fine_density(mcfg, rcfg, state, ro[nl:], rd[nl:], tm[nl:],
+                              fused, fs[nl:], sv[nl:])
+        tail = torch.maximum(_tail_weight(out_l[6], group),
+                             _tail_weight(out_h[6], group))
+
+        def merge(a, b):
+            # zero columns on the per-sample axis (bg_weight is [R, 1])
+            if a.dim() >= 2 and a.shape[1] == k_l * group:
+                pad = a.new_zeros((a.shape[0], (k_sub - k_l) * group)
+                                  + a.shape[2:])
+                a = torch.cat([a, pad], dim=1)
+            return torch.cat([a, b])[inv]
+
+        return tuple(merge(a, b) for a, b in zip(out_l, out_h)) + (tail,)
     out = _fine_density(mcfg, rcfg, state, rays_o, rays_d, t_min, fused,
                         fine_steps, sample_valid)
     return out + (_tail_weight(out[6], group),)
@@ -549,23 +603,19 @@ def calibrate_budgets(mcfg, rcfg: RenderConfig, state: RenderState,
                       head_term: bool = False,
                       head_tail_eps: float = 2e-3) -> RenderConfig:
     """Scene-adaptive budgets from the density of probe rays (no heads):
-    ``max_subsegments`` at the ``quantile`` of the per-ray need (the
-    deepest rank carrying weight above ``weight_eps``, or with ``tail_eps``
-    the proven residual bound at the probe max), plus ``margin``, rounded;
-    with ``termination`` the pass-A budget and survivor fraction of least
-    expected cost; otherwise the heavy/light light budget; with
-    ``head_term`` the two-phase head split, adopted only on a 15% expected
-    saving. Port of ``calibrate_budgets`` (L2-only selection; its L1
-    segment budget raises)."""
-    check_ported(rcfg)
+    with the L1 segment level (``use_l1``) ``max_segments`` from a probe at
+    the full segment budget, then ``max_subsegments`` from a probe at the
+    chosen one, each at the ``quantile`` of the per-ray need (the deepest
+    rank carrying weight above ``weight_eps``, or with ``tail_eps`` the
+    proven residual bound at the probe max), plus ``margin``, rounded; with
+    ``termination`` the pass-A budget and survivor fraction of least
+    expected cost, otherwise the heavy/light light budget; with
+    ``head_term`` the two-phase head split (over the heaviest samples, or
+    under "rank" selection the nearest above the threshold), adopted only
+    on a 15% expected saving. Port of ``calibrate_budgets``."""
+    validate_fine_span(rcfg, state)
     if rcfg.coarse_stride is None or fused.coarse_occ is None:
         return rcfg
-    if (rcfg.use_l1 or rcfg.sub_stride is None
-            or rcfg.sub_stride >= rcfg.coarse_stride):
-        raise NotImplementedError(
-            "calibrate_budgets: the L1 segment budget (use_l1=True, or no "
-            "finer sub_stride) is not ported; calibrate L2-only selection "
-            "(render_frames(l2_only=True))")
     probe = torch.as_tensor(np.asarray(probe_rays, np.float32),
                             device=fused.brick_atlas.device)
     cs = rcfg.coarse_stride
@@ -573,8 +623,8 @@ def calibrate_budgets(mcfg, rcfg: RenderConfig, state: RenderState,
 
     def need_of(w, group):
         if tail_eps > 0:
-            return _needed_budget_bounded(w, group, tail_eps)
-        return _needed_budget(w, group, weight_eps)
+            return _needed_budget_bounded(w, group, tail_eps).cpu().numpy()
+        return _needed_budget(w, group, weight_eps).cpu().numpy()
 
     def pick_q(needed, cap, q):
         need = int(np.quantile(needed, q)) + margin
@@ -585,14 +635,22 @@ def calibrate_budgets(mcfg, rcfg: RenderConfig, state: RenderState,
         # the bounded need is a per-ray proof: honor its max
         return pick_q(needed, cap, 1.0 if tail_eps > 0 else quantile)
 
-    # L2-only: every segment is a candidate
-    out = replace(rcfg, max_segments=S_c)
+    if not rcfg.use_l1:
+        # L2-only: every segment is a candidate
+        out = replace(rcfg, max_segments=S_c)
+    else:
+        # the segment level alone, at the full segment budget
+        full = replace(rcfg, max_segments=S_c, sub_stride=None, use_l1=True)
+        w = _two_level_density(mcfg, full, state, probe, fused)[6]
+        out = replace(rcfg, max_segments=pick(need_of(w, cs), S_c))
+    if rcfg.sub_stride is None or fused.coarse_occ_tight is None:
+        return out
     sub = rcfg.sub_stride
     cand = out.max_segments * (cs // sub)
     full2 = replace(out, max_subsegments=cand, max_subsegments_light=0,
                     term_first=0)
     w2 = _two_level_density(mcfg, full2, state, probe, fused)[6]
-    needed2 = need_of(w2, sub).cpu().numpy()
+    needed2 = need_of(w2, sub)
     out = replace(out, max_subsegments=pick(needed2, cand))
     if termination:
         # pass-A budget kA minimizing kA + P(need > kA) * margin * (k_sub -
@@ -611,6 +669,8 @@ def calibrate_budgets(mcfg, rcfg: RenderConfig, state: RenderState,
             out = replace(out, term_first=best[1], term_fraction=best[2],
                           max_subsegments_light=0)
     elif out.heavy_fraction > 0:
+        # only rays above the light budget must land in the heavy bucket,
+        # so half the heavy capacity is margin for drift
         light = pick_q(needed2, cand, 1.0 - out.heavy_fraction / 2)
         if light < out.max_subsegments:
             out = replace(out, max_subsegments_light=light)
@@ -618,10 +678,19 @@ def calibrate_budgets(mcfg, rcfg: RenderConfig, state: RenderState,
         # pass-A head budget minimizing kA + P(dropped mass > head_tail_eps)
         # * margin * (head_topk - kA), with the same drift margin
         k = min(out.head_topk, w2.shape[1])
-        w_kp = torch.sort(w2, dim=1, descending=True).values[:, :k]
-        w_kp = w_kp.cpu().numpy()
-        # below-threshold samples add nothing to the head composite
-        w_kp = np.where(w_kp > out.raymarch_weight_thres, w_kp, 0.0)
+        wp = w2.cpu().numpy()
+        if _head_select_mode(out) == "rank":
+            # the split falls in the k nearest above-threshold samples, so
+            # the tail mass is ranked in time order
+            m = wp > out.raymarch_weight_thres
+            rank = np.cumsum(m, axis=1) - 1
+            rr, cc = np.nonzero(m & (rank < k))
+            w_kp = np.zeros((wp.shape[0], k), wp.dtype)
+            w_kp[rr, rank[rr, cc]] = wp[rr, cc]
+        else:
+            w_kp = -np.sort(-wp, axis=1)[:, :k]
+            # below-threshold samples add nothing to the head composite
+            w_kp = np.where(w_kp > out.raymarch_weight_thres, w_kp, 0.0)
         tail_mass = np.cumsum(w_kp[:, ::-1], axis=1)[:, ::-1]
         best_h = None
         for kA in (4, 6, 8, 12, 16):
@@ -647,6 +716,26 @@ def _branch_feats(fused: Optional[FusedGrids], name: str, flat):
     return None
 
 
+def _branch_feats_dedup(fused: Optional[FusedGrids], name: str, flat, dedup,
+                        k_lim: int):
+    """``_branch_feats``, through the unique-cell reads of the first
+    ``k_lim`` head samples when ``dedup`` (uid, slot_k, xyz_k) is given and
+    the branch has a grid. Port of ``_branch_feats_dedup``."""
+    if dedup is not None and fused is not None and name in fused.features:
+        uid, slot_k, xyz_k = dedup
+        return sample_feature_dedup(fused, name, uid, slot_k[:, :k_lim],
+                                    xyz_k[:, :k_lim])
+    return _branch_feats(fused, name, flat)
+
+
+def _semins_feats_dedup(fused: Optional[FusedGrids], flat, dedup, k_lim: int):
+    """(semantic, instance) grid features of ``_branch_feats_dedup``. Port of
+    ``_semins_feats_dedup``; the port keeps one grid per branch, so there is
+    no joint semantic+instance table to read."""
+    return (_branch_feats_dedup(fused, "semantic", flat, dedup, k_lim),
+            _branch_feats_dedup(fused, "instance", flat, dedup, k_lim))
+
+
 def _semantic_map_postprocess(rcfg, semantic_map):
     if rcfg.semantic_weight_mode == "softmax":
         semantic_map = semantic_map / (torch.sum(semantic_map, -1, keepdim=True) + 1e-8)
@@ -661,14 +750,53 @@ def _tail_ratio(m_full, m_kept):
                        m_full / torch.clamp(m_kept, min=1e-12), 1.0)
 
 
-def _head_select(weight: torch.Tensor, k: int):
-    """The k heaviest samples per ray, sorted: (w_k [R,k], idx [R,k],
-    head_tail = max k-th kept weight). The "sort" mode of ``_head_select``:
-    a stable descending sort keeps ties lowest index first, as
-    ``lax.top_k`` does (many rays tie at zero weight)."""
-    w_sorted, idx = torch.sort(weight, dim=1, descending=True, stable=True)
-    w_k = w_sorted[:, :k]
-    return w_k, idx[:, :k], torch.amax(w_k[:, -1])
+def _head_select_mode(rcfg) -> str:
+    """``head_select`` as it applies: "rank" falls back to "sort" in
+    semantic_weight_mode "argmax", whose one-hot pick needs the heaviest
+    sample among those kept. Port of ``_head_select_mode``."""
+    if rcfg.head_select == "rank" and rcfg.semantic_weight_mode == "argmax":
+        return "sort"
+    return rcfg.head_select
+
+
+def _topk_iter(weight: torch.Tensor, k: int):
+    """The k heaviest samples per ray by k argmax passes, each masking its
+    pick: (values [R,k] descending, indices [R,k]), ties lowest index first
+    (``torch.argmax`` returns the first maximum), as ``lax.top_k`` gives
+    them. Port of ``_topk_iter``."""
+    neg = torch.finfo(weight.dtype).min
+    cols = torch.arange(weight.shape[1], device=weight.device)
+    vals, idxs = [], []
+    w = weight
+    for _ in range(k):
+        i = torch.argmax(w, dim=1)
+        vals.append(torch.gather(w, 1, i[:, None])[:, 0])
+        idxs.append(i)
+        w = torch.where(cols == i[:, None], neg, w)
+    return torch.stack(vals, dim=1), torch.stack(idxs, dim=1)
+
+
+def _head_select(rcfg, weight: torch.Tensor, k: int):
+    """The k head samples per ray: (w_k [R,k], idx [R,k], head_tail). "sort"
+    and "iter": the k heaviest, descending, ties lowest index first as
+    ``lax.top_k`` keeps them (many rays tie at zero weight; the sort is
+    stable), head_tail the largest k-th kept weight. "rank": the k nearest
+    samples above ``raymarch_weight_thres`` (``_first_k_set``), weight 0 in
+    the slots left empty, head_tail the largest above-threshold mass a ray
+    drops. Port of ``_head_select``."""
+    mode = _head_select_mode(rcfg)
+    if mode == "rank":
+        live = weight > rcfg.raymarch_weight_thres
+        idx, valid = _first_k_set(live, k)
+        w_k = torch.where(valid, torch.gather(weight, 1, idx), 0.0)
+        m_above = torch.sum(weight * live, -1)
+        return w_k, idx, torch.amax(m_above - torch.sum(w_k, -1))
+    if mode == "iter":
+        w_k, idx = _topk_iter(weight, k)
+    else:
+        w_sorted, idx = torch.sort(weight, dim=1, descending=True, stable=True)
+        w_k, idx = w_sorted[:, :k], idx[:, :k]
+    return w_k, idx, torch.amax(w_k[:, -1])
 
 
 def _head_weights(rcfg, weight):
@@ -682,40 +810,59 @@ def _head_weights(rcfg, weight):
     return w.detach() if rcfg.stop_semantic_grad else w
 
 
-def _app_block(params, mcfg, fused, xyz_s, view_r, mask_s, compute_dtype):
+def _app_block(params, mcfg, fused, xyz_s, view_r, mask_s, compute_dtype,
+               dedup=None):
     """rgb [Rn, Ks, 3] at samples xyz_s [Rn, Ks, 3] of rays with view
-    directions view_r [Rn, 3], zero where ``mask_s`` is False."""
+    directions view_r [Rn, 3], zero where ``mask_s`` is False; with
+    ``dedup`` the features are read once per unique cell."""
     Rn, Ks = xyz_s.shape[:2]
     flat = xyz_s.reshape(-1, 3)
     vd = view_r[:, None, :].expand(Rn, Ks, 3).reshape(-1, 3)
-    rgb = tf.render_appearance(params, mcfg, vd, flat, compute_dtype,
-                               feats=_branch_feats(fused, "appearance", flat))
+    rgb = tf.render_appearance(
+        params, mcfg, vd, flat, compute_dtype,
+        feats=_branch_feats_dedup(fused, "appearance", flat, dedup, Ks))
     return torch.where(mask_s.reshape(-1, 1), rgb, 0.0).reshape(Rn, Ks, 3)
 
 
-def _semins_block(params, mcfg, fused, xyz_s, mask_s, compute_dtype):
+def _semins_block(params, mcfg, fused, xyz_s, mask_s, compute_dtype,
+                  dedup=None, baked: bool = False):
     """(semantics, instances) [Rn, Ks, C] at samples xyz_s, zero where
-    ``mask_s`` is False."""
+    ``mask_s`` is False; with ``dedup`` the grid features are read once per
+    unique cell; with ``baked`` both are read from the baked table
+    (``renderer/bake.py``: semantic logits, then instance features) in
+    place of the head MLPs."""
     Rn, Ks = xyz_s.shape[:2]
     flat = xyz_s.reshape(-1, 3)
     mf = mask_s.reshape(-1, 1)
-    sem = tf.render_semantics(params, mcfg, flat, None, compute_dtype,
-                              feats=_branch_feats(fused, "semantic", flat))
-    ins = tf.render_instances(params, mcfg, flat, None, compute_dtype,
-                              feats=_branch_feats(fused, "instance", flat))
+    if baked:
+        C = mcfg.num_semantic_classes
+        bk = sample_feature_fused(fused, "baked", flat)
+        sem, ins = bk[:, :C], bk[:, C:]
+        if mcfg.semantic_output_softmax:
+            sem = torch.softmax(sem, dim=-1)
+    else:
+        f_sem, f_ins = _semins_feats_dedup(fused, flat, dedup, Ks)
+        sem = tf.render_semantics(params, mcfg, flat, None, compute_dtype,
+                                  feats=f_sem)
+        ins = tf.render_instances(params, mcfg, flat, None, compute_dtype,
+                                  feats=f_ins)
     return (torch.where(mf, sem, 0.0).reshape(Rn, Ks, -1),
             torch.where(mf, ins, 0.0).reshape(Rn, Ks, -1))
 
 
 def _heads_one_pass(params, mcfg, rcfg, fused, rays, xyz_h, head_weight,
-                    app_mask, k2, compute_dtype, m_full):
+                    app_mask, k2, compute_dtype, m_full, dedup=None,
+                    baked: bool = False):
     """Heads on every column of xyz_h [R, Sh, 3] (the sem/ins heads on the
     first k2), composited with ``head_weight``; with ``m_full`` the rgb and
-    instance maps are completed by the dropped above-threshold mass."""
+    instance maps are completed by the dropped above-threshold mass; with
+    ``dedup`` the feature rows are read once per unique cell, with
+    ``baked`` the sem/ins heads read the baked table."""
     rgb = _app_block(params, mcfg, fused, xyz_h, rays[:, 3:6], app_mask,
-                     compute_dtype)
+                     compute_dtype, dedup)
     semantics, instances = _semins_block(params, mcfg, fused, xyz_h[:, :k2],
-                                         app_mask[:, :k2], compute_dtype)
+                                         app_mask[:, :k2], compute_dtype,
+                                         dedup, baked)
     rgb_map = composite(head_weight, rgb)
     w = _head_weights(rcfg, head_weight)
     semantic_map = torch.sum(w[:, :k2] * semantics, dim=-2)
@@ -798,8 +945,7 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
                 rng=None, is_train: bool = False,
                 fused: Optional[FusedGrids] = None):
     """Render pass: rgb / semantics / instances / depth / dist-reg, and the
-    guardrails ``budget_tail`` and ``head_tail`` (``dedup_tail`` is 0: head
-    dedup is not ported).
+    guardrails ``budget_tail``, ``head_tail`` and ``dedup_tail``.
 
     ``fused``: the grids of ``ops/fused_grid.py::build_render_grids`` (the
     density of every sample through the brick-atlas kernel, head features
@@ -807,15 +953,18 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
     the cell-corner rows, heads sampling the VM factors), or None (the VM
     factors sampled directly). With occupancy tables and ``coarse_stride``
     the samples are selected by empty-space skipping, except in training;
-    with ``head_topk`` the heads run on the k heaviest samples per ray.
+    with ``head_topk`` the heads run on k samples per ray (``head_select``),
+    with ``head_dedup_cells`` their feature rows are read once per unique
+    cell, and grids with a baked table (``renderer/bake.py``) give the
+    semantic and instance heads' outputs.
 
     ``is_train`` with ``rng`` (a ``torch.Generator`` or ``RayDraws``)
     jitters the samples and flips the background coin; training takes no
-    two-phase heads and no tail completion, as in the JAX package."""
+    two-phase heads, no tail completion, no dedup and no baked heads, as in
+    the JAX package."""
     if mcfg.use_distilled:
         raise NotImplementedError("render_rays: distilled-feature heads "
                                   "(use_distilled_features_*) are not ported")
-    check_ported(rcfg)
     draws = ray_draws(rng, rays.shape[0], rays.device) if is_train else None
     jitter = draws.jitter if draws is not None else None
     two_level = (rcfg.coarse_stride is not None and fused is not None
@@ -833,35 +982,46 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
                      else torch.float32)
 
     head_tail = torch.zeros((), device=weight.device)
+    dedup_tail = torch.zeros((), device=weight.device)
+    dedup = None  # (uid, slot_k, xyz_k) when the unique-cell reads are on
     topk = rcfg.head_topk is not None and rcfg.head_topk < S
     if topk:
-        w_k, idx, head_tail = _head_select(weight, rcfg.head_topk)
+        w_k, idx, head_tail = _head_select(rcfg, weight, rcfg.head_topk)
         xyz_h = torch.gather(xyz_n, 1, idx[..., None].expand(*idx.shape, 3))
         head_weight = w_k
         Sh = rcfg.head_topk
-        # the sem/ins heads take a prefix of the sorted k: the top k2
+        # the sem/ins heads take a prefix of the k columns: the same rule
+        # at the smaller budget
         k2 = (Sh if rcfg.head_topk_semins is None
               else min(rcfg.head_topk_semins, Sh))
+        if (rcfg.head_dedup_cells is not None and fused is not None
+                and rcfg.head_dedup_cells < Sh and not is_train):
+            slot, uid, dedup_tail = head_dedup_slots(
+                fused, xyz_n, weight > rcfg.raymarch_weight_thres,
+                rcfg.head_dedup_cells)
+            dedup = (uid, torch.gather(slot, 1, idx), xyz_h)
     else:
         xyz_h, head_weight, Sh, k2 = xyz_n, weight, S, S
     app_mask = head_weight > rcfg.raymarch_weight_thres         # [R, Sh]
     m_full = None
     if rcfg.head_tail_complete and topk and not is_train:
         m_full = torch.sum(weight * (weight > rcfg.raymarch_weight_thres), -1)
-    if topk and 0 < rcfg.head_term_first < Sh and not is_train:
+    baked = fused is not None and not is_train and "baked" in fused.features
+    if (topk and 0 < rcfg.head_term_first < Sh and not is_train
+            and dedup is None and not baked):
         rgb_map, semantic_map, instance_map, head_tail = _heads_two_phase(
             params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
             compute_dtype, head_tail, m_full)
     else:
         rgb_map, semantic_map, instance_map = _heads_one_pass(
             params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
-            compute_dtype, m_full)
+            compute_dtype, m_full, dedup, baked)
     coin = draws.coin if draws is not None else None
     out = _finish_maps(rcfg, coin, weight, z_vals, torch.sum(weight, -1),
                        rgb_map, _semantic_map_postprocess(rcfg, semantic_map),
                        instance_map, dist_reg)
     out.update(budget_tail=budget_tail, head_tail=head_tail,
-               dedup_tail=torch.zeros((), device=weight.device))
+               dedup_tail=dedup_tail)
     return out
 
 
@@ -889,12 +1049,12 @@ def _finish_maps(rcfg, coin, weight, z_vals, opacity, rgb_map, semantic_map,
 # ---------------------------------------------------------------------------
 
 def _aux_topk(rcfg: RenderConfig, weight, xyz_n, z_vals, live=None):
-    """The k heaviest samples per ray (``head_topk``) for the stop-gradient
-    passes: exact while at most k samples of a ray clear
-    ``raymarch_weight_thres``, since only those reach the heads. Returns
-    (w_k, xyz_k, z_k, tail), ``tail`` the fraction of live rays with more
-    than k samples above the threshold (0: this batch was exact). Port of
-    ``_aux_topk`` (its "sort" mode)."""
+    """The k head samples per ray (``head_topk``, picked by
+    ``head_select`` as the render picks them) for the stop-gradient passes:
+    exact while at most k samples of a ray clear ``raymarch_weight_thres``,
+    since only those reach the heads. Returns (w_k, xyz_k, z_k, tail),
+    ``tail`` the fraction of live rays with more than k samples above the
+    threshold (0: this batch was exact). Port of ``_aux_topk``."""
     R, S = weight.shape
     if rcfg.head_topk is None or rcfg.head_topk >= S:
         return weight, xyz_n, z_vals, torch.zeros((), device=weight.device)
@@ -904,7 +1064,7 @@ def _aux_topk(rcfg: RenderConfig, weight, xyz_n, z_vals, live=None):
         # zero-padded stream rays must not trip the guardrail
         over = over & live
     tail = torch.mean(over.to(torch.float32))
-    w_k, idx, _ = _head_select(weight, k)
+    w_k, idx, _ = _head_select(rcfg, weight, k)
     xyz_k = torch.gather(xyz_n, 1, idx[..., None].expand(*idx.shape, 3))
     return w_k, xyz_k, torch.gather(z_vals, 1, idx), tail
 
@@ -944,7 +1104,6 @@ def _aux_heads(params, mcfg, rcfg, state, rays, rng, is_train, fused):
     if mcfg.use_distilled:
         raise NotImplementedError("distilled-feature heads "
                                   "(use_distilled_features_*) are not ported")
-    check_ported(rcfg)
     xyz_n, z_vals, weight, budget_tail = aux_density_weights(
         params, mcfg, rcfg, state, rays, rng, is_train, fused)
     distance_map = torch.sum(weight * z_vals, -1)

@@ -172,6 +172,87 @@ def test_sample_density_brick_stress_on_card(cuda_device, dtype, n):
             got, rtol=0, atol=0, msg=lambda m: f"{name}, unaligned xyz: {m}")
 
 
+def _span_cases(grid_dim, n_rays, K, T, gen, device):
+    """[n_rays, K, T, 3] spans of T consecutive samples on random lines
+    through the box (out-of-box samples included), at steps of a quarter
+    voxel (every span fits in 4 rows), 1.5 voxels (spans cross up to 9
+    bricks: the clamp), and 0.01 voxel (most spans stay in one brick: the
+    runs past the first are empty)."""
+    g = torch.tensor(grid_dim, dtype=torch.float32, device=device)
+    out = {}
+    for name, step in (("quarter_voxel", 0.25), ("clamped", 1.5),
+                       ("one_brick", 0.01)):
+        o = torch.rand((n_rays, K, 1, 3), generator=gen, device=device) \
+            * (g + 1.0) - 1.0
+        d = torch.randn((n_rays, K, 1, 3), generator=gen, device=device)
+        d = d / d.norm(dim=-1, keepdim=True)
+        t = torch.arange(T, device=device, dtype=torch.float32)[:, None]
+        p = o + d * t * step
+        out[name] = (p / (g - 1.0) * 2.0 - 1.0).contiguous()
+    return out
+
+
+def _max_runs(grid_dim, xyz):
+    """Most bricks any span of [R,K,T,3] visits."""
+    row, _ = bi.brick_coords(grid_dim, xyz.reshape(-1, 3))
+    row = row.reshape(xyz.shape[:3])
+    return 1 + int((row[..., 1:] != row[..., :-1]).sum(-1).max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("T,W", [(8, 4), (8, 2), (16, 4), (32, 16), (1, 2),
+                                 (5, 3)])
+def test_span_form_matches_plain_version_on_card(cuda_device, dtype, T, W):
+    """Span form, kernel against plain on spans that fit their rows, spans
+    the kernel must clamp as the JAX function does, and spans whose later
+    runs are empty, with span counts that leave a warp's last group short:
+    1e-5 absolute (float32 sums of the same widened values in another
+    order). Where every span fits, the kernel equals the fused form's kernel
+    bit for bit; every call counts one launch of its row type."""
+    grid_dim = (29, 23, 17)
+    gen = torch.Generator(device=cuda_device).manual_seed(T * 31 + W)
+    atlas = tfg.build_brick_atlas(torch.randn(grid_dim, generator=gen,
+                                              device=cuda_device), dtype)
+    for name, xyz in _span_cases(grid_dim, 257, 3, T, gen,
+                                 cuda_device).items():
+        n0 = bi.sample_density_brick_span.dtype_launches.get(_name(dtype), 0)
+        got = bi.sample_density_brick_span(atlas, xyz, grid_dim, -3.0, W)
+        torch.cuda.synchronize()
+        assert (bi.sample_density_brick_span.dtype_launches[_name(dtype)]
+                == n0 + 1)
+        want = bi.sample_density_brick_span_reference(atlas, xyz, grid_dim,
+                                                      -3.0, W)
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5,
+                                   msg=lambda m: f"{name}: {m}")
+        if _max_runs(grid_dim, xyz) <= W:
+            fused = bi.sample_density_brick(atlas, xyz.view(-1, 3), grid_dim,
+                                            -3.0).view(got.shape)
+            assert torch.equal(got, fused), name
+        elif name == "clamped":
+            assert _max_runs(grid_dim, xyz) > W
+
+
+@pytest.mark.cuda
+def test_span_wrapper_rejects_what_the_kernel_does_not_take(cuda_device):
+    grid_dim = (14, 14, 14)
+    atlas = tfg.build_brick_atlas(torch.randn(grid_dim, device=cuda_device))
+    xyz = torch.zeros((4, 2, 8, 3), device=cuda_device)
+    with pytest.raises(ValueError, match="rows a span"):
+        bi.sample_density_brick_span(atlas, xyz, grid_dim, 0.0, 17)
+    with pytest.raises(ValueError, match="samples"):
+        bi.sample_density_brick_span(
+            atlas, torch.zeros((4, 2, 33, 3), device=cuda_device), grid_dim,
+            0.0, 4)
+    with pytest.raises(ValueError, match="R, K, T, 3"):
+        bi.sample_density_brick_span(atlas, xyz.view(-1, 3), grid_dim, 0.0, 4)
+    with pytest.raises(ValueError, match="contiguous"):
+        bi.sample_density_brick_span(atlas, xyz.transpose(1, 2), grid_dim,
+                                     0.0, 4)
+    with pytest.raises(TypeError, match="float16"):
+        bi.sample_density_brick_span(atlas.half(), xyz, grid_dim, 0.0, 4)
+
+
 def _field(rng, grid=14, classes=2, inst=3):
     """A random grid-14 parameter tree of the r5b layout (xyz-MLP semantic
     and slow-fast instance heads), made with numpy."""
@@ -696,3 +777,70 @@ def test_sharded_render_on_card_equals_one_process(cuda_device, tmp_path):
         for key in dryrun.MAP_KEYS:
             np.testing.assert_allclose(a[key], b[key], rtol=0, atol=1e-6,
                                        err_msg=key)
+
+
+# each render option of fidelity.OPTIONS at fixed budgets (no calibration,
+# which floats decide at its quantiles): render config changes, keywords
+CARD_OPTIONS = {
+    "l1": (dict(max_segments=4), dict(l2_only=False)),
+    "no_term": (dict(max_subsegments_light=4, heavy_fraction=0.25), {}),
+    "iter": (dict(head_select="iter"), {}),
+    "rank": (dict(head_select="rank"), {}),
+    "dedup": (dict(head_dedup_cells=6), {}),
+    "span": (dict(fine_span_rows=4), {}),
+    "baked": ({}, dict(bake_heads=True)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("option", sorted(CARD_OPTIONS))
+def test_option_render_on_card_matches_cpu(cuda_device, option):
+    """render_frames with each render option at grid 14 (top-8 fp32 heads
+    with tail completion, fixed budgets, TF32 off) on the card == on the
+    CPU: maps within 1e-4 (3e-2 for the baked bf16 tables); every pass
+    launches the fused kernel, or with span gathers the span form."""
+    import dataclasses
+
+    from contrastive_lift_tpu_torch.data.base import FrameData
+    from contrastive_lift_tpu_torch.factory import make_model_config, make_render_config
+    from contrastive_lift_tpu_torch.inference.fidelity import e2e_config
+    from contrastive_lift_tpu_torch.inference.render import render_frames_report
+    from contrastive_lift_tpu_torch.io.convert import params_from_numpy
+    from contrastive_lift_tpu_torch.renderer.render import make_render_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    changes, kw = CARD_OPTIONS[option]
+    rng = np.random.default_rng(2)
+    tree = _field(rng)
+    bbox = np.array([[-1.0] * 3, [1.0] * 3], np.float32)
+    cfg = e2e_config((16, 24))
+    mcfg = make_model_config(cfg, 2)
+    rcfg = dataclasses.replace(
+        make_render_config(cfg, bbox, (14,) * 3, mcfg, 0.25), head_topk=8,
+        max_subsegments=8, term_first=0, **changes)
+    o = rng.uniform(-0.3, 0.3, (500, 3)) + [0.0, 0.0, -2.0]
+    d = rng.normal(size=(500, 3))
+    d[:, 2] = np.abs(d[:, 2]) + 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([o, d, np.full((500, 1), 0.05),
+                           np.full((500, 1), 5.0)], -1).astype(np.float32)
+    frames = [FrameData("0", rays, *([None] * 6))]
+    kernel = (bi.sample_density_brick_span if option == "span"
+              else bi.sample_density_brick)
+    reports = {}
+    for dev in ("cpu", cuda_device):
+        n0 = bi.launch_total(kernel)
+        reports[str(dev)] = render_frames_report(
+            params_from_numpy(tree, dev), mcfg, rcfg,
+            make_render_state(bbox, (14,) * 3, 0.25, device=dev), frames,
+            chunk=128, auto_budget=False, device=dev, **kw)
+        passes = 2 if option == "no_term" else 1
+        assert bi.launch_total(kernel) - n0 == (
+            passes * 4 if dev == cuda_device else 0)
+    cpu, card = reports["cpu"], reports[str(cuda_device)]
+    assert dataclasses.asdict(card.rcfg) == dataclasses.asdict(cpu.rcfg)
+    atol = 3e-2 if option == "baked" else 1e-4
+    for key, want in cpu.maps[0].items():
+        np.testing.assert_allclose(card.maps[0][key], want, atol=atol, rtol=0,
+                                   err_msg=key)
+    assert np.mean(np.abs(cpu.maps[0]["instances"]).sum(-1) > 0) > 0.2

@@ -71,6 +71,16 @@ cached-centroid render's budgets, predictions and scores, both box sets,
 every 8th back-projected point of the mbr run with its instance id and the
 JAX boxes of those points, the legacy PNGs and budgets, the edit rays, box,
 move and maps; add the argument ``tools``.
+
+``write_options_golden()`` renders the same frames as the production
+golden once per render option of ``inference/fidelity.py::OPTIONS`` (the
+production point with one change each: the L1 cascade, no termination so
+that the calibration picks heavy/light bucketing, iter and rank head
+selection, unique-cell dedup of 6 cells, span gathers of 4 rows, baked
+heads), eagerly, clusters and scores each, and writes
+``contrastive_lift_tpu_torch/testdata/r5b_options_golden.npz``: per option
+the maps at every 12th ray, the scores, the calibrated budgets, the
+guardrail maxima and warnings; add the argument ``options`` (about 6 min).
 """
 import subprocess
 import sys
@@ -86,8 +96,8 @@ sys.path.insert(0, str(ROOT))
 torch.set_num_threads(2)
 
 from contrastive_lift_tpu_torch.inference.fidelity import (  # noqa: E402
-    BANDWIDTH, BUDGET_FIELDS, CHUNK, PRODUCTION_CHUNK, R5B_CKPT, R5B_SCENE,
-    dense_config, guardrail, production_config)
+    BANDWIDTH, BUDGET_FIELDS, CHUNK, OPTIONS, PRODUCTION_CHUNK, R5B_CKPT,
+    R5B_SCENE, dense_config, guardrail, production_config, recorded_budgets)
 
 GOLDEN = ROOT / "contrastive_lift_tpu_torch" / "testdata" / "r5b_dense_golden.npz"
 PRODUCTION_GOLDEN = GOLDEN.with_name("r5b_production_golden.npz")
@@ -95,6 +105,7 @@ TRAIN_GOLDEN = GOLDEN.with_name("r5b_train_step_golden.npz")
 STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
 CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
 TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
+OPTIONS_GOLDEN = GOLDEN.with_name("r5b_options_golden.npz")
 RAY_STRIDE = 12
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 # a golden ray counts as moved by jit where a map differs by more than this
@@ -105,6 +116,7 @@ TRAIN_COMMAND = COMMAND + " train"
 STAGE_COMMAND = COMMAND + " stage"
 CLI_COMMAND = COMMAND + " cli"
 TOOLS_COMMAND = COMMAND + " tools"
+OPTIONS_COMMAND = COMMAND + " options"
 # the training golden's sampler seed
 TRAIN_SEED = 0
 
@@ -246,6 +258,95 @@ def write_production_golden(path=PRODUCTION_GOLDEN) -> dict:
         warnings=np.asarray([str(w.message) for w in caught
                              if w.filename == jrender.__file__], dtype=str),
         jit=False, commit=commit, command=PRODUCTION_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
+def write_options_golden(path=OPTIONS_GOLDEN) -> dict:
+    """Render r5b's val frames with the JAX package eagerly once per render
+    option of ``OPTIONS`` (the production point with one change each),
+    cluster and score each; save the golden.
+
+    Per option ``<name>``: the maps at every 12th ray (``<name>_rgb``, ...),
+    the scores, the calibrated budget fields (``<name>_budget_<field>``),
+    the largest ``budget_tail``, ``head_tail`` and ``dedup_tail`` over the
+    chunks, the guardrail warnings and the chunk count; beside them the span
+    option's atlas rows per span and the least that r5b's step admits
+    (``span_rows_required``), and the golden's provenance."""
+    import dataclasses
+    import warnings
+
+    import jax
+    jax.config.update("jax_platforms", "cpu")
+    from contrastive_lift_tpu.inference import render as jrender
+    from contrastive_lift_tpu.ops.fused_grid import span_rows_required
+    from tools.pq_fidelity_gate import cluster_maps, e2e_config, e2e_scene, pq_for
+
+    scene = e2e_scene(*R5B_SCENE)
+    cfg = e2e_config(scene.image_dim)
+    params, mcfg, rcfg, state_r, _ = jrender.load_model_for_inference(
+        R5B_CKPT, cfg, scene.num_semantic_classes, step_ratio=0.25,
+        head_topk=8)
+    rcfg = production_config(rcfg)
+    n_rays = sum(len(f.rays) for f in scene.val_frames)
+    idx = np.arange(0, n_rays, RAY_STRIDE)
+    R = jrender.R
+    real_render_rays = R.render_rays
+    image_dim, num_train, checker_freq = R5B_SCENE
+    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                            capture_output=True, text=True).stdout.strip()
+    out = dict(
+        ray_index=idx, options=np.asarray(list(OPTIONS), dtype=str),
+        n_samples=rcfg.n_samples, bandwidth=BANDWIDTH, chunk=PRODUCTION_CHUNK,
+        head_topk=rcfg.head_topk, head_topk_semins=rcfg.head_topk_semins,
+        head_dtype=rcfg.head_dtype, image_dim=np.asarray(image_dim),
+        num_train=num_train, checker_freq=checker_freq,
+        span_fine_span_rows=OPTIONS["span"][0]["fine_span_rows"],
+        span_rows_required=span_rows_required(
+            np.asarray(state_r.units), float(state_r.step_size),
+            rcfg.sub_stride),
+        jit=False, commit=commit, command=OPTIONS_COMMAND)
+    for name, (changes, render_kw) in OPTIONS.items():
+        tails = []
+
+        def render_rays_spy(*args, **kw):
+            res = real_render_rays(*args, **kw)
+            tails.append([float(res[k]) for k in ("budget_tail", "head_tail",
+                                                  "dedup_tail")])
+            return res
+
+        R.render_rays = render_rays_spy
+        try:
+            with jax.disable_jit(), recorded_budgets(R) as calibrated, \
+                    warnings.catch_warnings(record=True) as caught:
+                warnings.simplefilter("always")
+                frames = jrender.render_frames(
+                    params, mcfg, dataclasses.replace(rcfg, **changes),
+                    state_r, scene.val_frames, chunk=PRODUCTION_CHUNK,
+                    **render_kw)
+        finally:
+            R.render_rays = real_render_rays
+        onehot = cluster_maps(frames, scene, BANDWIDTH, cfg.max_instances)
+        pq, sq, rq, pq_m = pq_for(frames, onehot, scene, cfg.max_instances)
+        budgets, = calibrated
+        tails = np.asarray(tails)
+        out.update({f"{name}_{k}": np.concatenate([f[k] for f in frames])[idx]
+                    for k in MAP_KEYS})
+        out.update({f"{name}_budget_{f}": getattr(budgets, f)
+                    for f in BUDGET_FIELDS})
+        out.update({
+            f"{name}_pq_scene": pq, f"{name}_pq_masked": pq_m,
+            f"{name}_sq": sq, f"{name}_rq": rq, f"{name}_n_chunks": len(tails),
+            f"{name}_budget_tail_max": tails[:, 0].max(),
+            f"{name}_head_tail_max": tails[:, 1].max(),
+            f"{name}_dedup_tail_max": tails[:, 2].max(),
+            f"{name}_warnings": np.asarray(
+                [str(w.message) for w in caught
+                 if w.filename == jrender.__file__], dtype=str)})
+        print(name, {k[len(name) + 1:]: out[k] for k in out
+                     if k.startswith(name + "_") and np.size(out[k]) < 30},
+              flush=True)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **out)
     return out
@@ -787,6 +888,76 @@ def test_port_on_cpu_matches_production_golden():
             assert abs(res[key] - float(g[key])) <= 0.005
 
 
+def test_options_golden_layout():
+    """The committed options golden: for each of fidelity.OPTIONS the maps
+    at every 12th ray of the 4 val frames, finite, the scores, the
+    calibrated budgets (the L1 budget under "l1", the light budget under
+    "no_term", termination otherwise), the guardrails and warnings; the span
+    option's rows as many as r5b's step needs; its provenance."""
+    with np.load(OPTIONS_GOLDEN) as g:
+        assert list(g["options"]) == list(OPTIONS)
+        n = 4 * 64 * 96 // RAY_STRIDE
+        np.testing.assert_array_equal(g["ray_index"],
+                                      np.arange(0, 4 * 64 * 96, RAY_STRIDE))
+        assert (int(g["head_topk"]), int(g["head_topk_semins"]),
+                str(g["head_dtype"])) == (8, 8, "bfloat16")
+        assert int(g["chunk"]) == PRODUCTION_CHUNK
+        assert int(g["span_fine_span_rows"]) == OPTIONS["span"][0][
+            "fine_span_rows"] == int(g["span_rows_required"])
+        for name in OPTIONS:
+            for key, width in (("rgb", 3), ("semantics", 2), ("instances", 6)):
+                assert g[f"{name}_{key}"].shape == (n, width)
+                assert np.isfinite(g[f"{name}_{key}"]).all()
+            assert g[f"{name}_depth"].shape == (n,)
+            for key in ("pq_scene", "pq_masked", "sq", "rq"):
+                assert 0.0 <= float(g[f"{name}_{key}"]) <= 1.0
+            for field in BUDGET_FIELDS:
+                assert g[f"{name}_budget_{field}"].shape == ()
+            assert bool(g[f"{name}_budget_use_l1"]) == (name == "l1")
+            light = int(g[f"{name}_budget_max_subsegments_light"])
+            term = int(g[f"{name}_budget_term_first"])
+            assert (light > 0, term > 0) == ((True, False) if name == "no_term"
+                                             else (False, True))
+            assert int(g[f"{name}_n_chunks"]) == 8
+            assert (float(g[f"{name}_dedup_tail_max"]) > 0) == (name == "dedup")
+            assert g[f"{name}_warnings"].ndim == 1
+        assert len(str(g["commit"])) == 40
+        assert str(g["command"]) == OPTIONS_COMMAND
+
+
+def _check_option_on_cpu(option):
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        e2e_scene, run_production)
+
+    res = run_production(R5B_CKPT, e2e_scene(*R5B_SCENE), device="cpu",
+                         option=option)
+    with np.load(OPTIONS_GOLDEN) as g:
+        for field in BUDGET_FIELDS:
+            assert getattr(res["rcfg"], field) == g[
+                f"{option}_budget_{field}"].item(), field
+        assert [guardrail(m) for m in res["warnings"]] == [
+            guardrail(str(m)) for m in g[f"{option}_warnings"]]
+        for key in MAP_KEYS:
+            got = np.concatenate([f[key] for f in res["maps"]])[g["ray_index"]]
+            np.testing.assert_allclose(got, g[f"{option}_{key}"], atol=3e-2,
+                                       rtol=0, err_msg=key)
+        for key in ("pq_scene", "pq_masked"):
+            assert abs(res[key] - float(g[f"{option}_{key}"])) <= 0.005, key
+
+
+# about 45 s each on the CPU, 5 min for the seven: Tier-1 runs the span
+# option's, which goes through the span form's plain version
+@pytest.mark.parametrize("option", [
+    pytest.param(o, marks=() if o == "span" else pytest.mark.slow)
+    for o in OPTIONS])
+def test_port_on_cpu_matches_options_golden(option):
+    """The port's render of r5b on the CPU with each option
+    (``run_production(option=)``): calibrated budgets and guardrail
+    warnings as in the golden, maps within the bf16-head bar 3e-2, PQ^scene
+    and masked PQ within the gate's 0.5 pt."""
+    _check_option_on_cpu(option)
+
+
 def test_train_step_golden_layout():
     """The committed training golden: r5b's step at its checkpoint's epoch
     with every phase open, the draws of the step's key at the batch shapes,
@@ -1109,8 +1280,30 @@ def test_production_golden_regenerates(tmp_path):
             assert abs(fresh[key] - float(g[key])) <= 0.005
 
 
+@pytest.mark.slow
+def test_options_golden_regenerates(tmp_path):
+    """write_options_golden() reproduces the committed file: budgets,
+    warnings and chunk counts equal, maps within 1e-4, scores within the
+    repo's 0.5 pt PQ bar."""
+    fresh = write_options_golden(tmp_path / "golden.npz")
+    with np.load(OPTIONS_GOLDEN) as g:
+        for name in OPTIONS:
+            for key in [f"budget_{f}" for f in BUDGET_FIELDS] + ["n_chunks"]:
+                assert fresh[f"{name}_{key}"] == g[f"{name}_{key}"].item()
+            assert [guardrail(str(m)) for m in fresh[f"{name}_warnings"]] == [
+                guardrail(str(m)) for m in g[f"{name}_warnings"]]
+            for key in MAP_KEYS:
+                np.testing.assert_allclose(fresh[f"{name}_{key}"],
+                                           g[f"{name}_{key}"], atol=1e-4)
+            for key in ("pq_scene", "pq_masked", "sq", "rq"):
+                assert abs(fresh[f"{name}_{key}"]
+                           - float(g[f"{name}_{key}"])) <= 0.005
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["tools"]:
+    if sys.argv[1:] == ["options"]:
+        write_options_golden()
+    elif sys.argv[1:] == ["tools"]:
         rec = write_tools_golden()
         print({k: v for k, v in rec.items() if np.size(v) < 60})
     elif sys.argv[1:] == ["cli"]:

@@ -399,26 +399,34 @@ def test_head_term_calibrated_and_rendered_like_jax(field):
 
 
 def test_unported_production_options_raise(field):
-    """Heavy/light bucketing, which the port does not have, raises
-    NotImplementedError naming it where the JAX package would take it. The
-    L1 segment cascade (use_l1=True, with sub-segments or coarse segments
-    only) renders as JAX's; its budget calibration is not ported and raises
-    naming the option."""
+    """Heavy/light bucketing, which the port once refused, renders as the
+    JAX package's render_rays. The L1 segment cascade (use_l1=True, with
+    sub-segments or coarse segments only) renders as JAX's, and its budget
+    calibration, once refused too, gives the JAX package's config. No
+    option of the production path raises NotImplementedError any more."""
     jp, jm, jr, js, jf = field["j"]
     tp, tm, tr, ts, tf = field["t"]
     rays = _rays(64, 0)
-    light = dataclasses.replace(tr, max_subsegments=8, max_subsegments_light=4)
-    with pytest.raises(NotImplementedError, match="max_subsegments_light"):
-        tR.render_rays(tp, tm, light, ts, torch.from_numpy(rays), fused=tf)
+    light = dict(max_subsegments=8, max_subsegments_light=4, term_first=0)
+    want = jR.render_rays(jp, jm, dataclasses.replace(jr, **light), js,
+                          jnp.asarray(rays), None, False, fused=jf)
+    got = tR.render_rays(tp, tm, dataclasses.replace(tr, **light), ts,
+                         torch.from_numpy(rays), fused=tf)
+    for key in MAP_KEYS + ("budget_tail",):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   **F32_BAR, err_msg=f"{key}, heavy/light")
     for changes, name in ((dict(use_l1=True), "use_l1"),
                           (dict(sub_stride=None, use_l1=True), "sub_stride"),
                           (dict(sub_stride=16), "sub_stride")):
         rc = dataclasses.replace(tr, **changes)
-        want = jR.render_rays(jp, jm, dataclasses.replace(jr, **changes), js,
-                              jnp.asarray(rays), None, False, fused=jf)
+        jrc = dataclasses.replace(jr, **changes)
+        want = jR.render_rays(jp, jm, jrc, js, jnp.asarray(rays), None, False,
+                              fused=jf)
         got = tR.render_rays(tp, tm, rc, ts, torch.from_numpy(rays), fused=tf)
         for key in MAP_KEYS + ("budget_tail",):
             np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
                                        **F32_BAR, err_msg=f"{key}, {changes}")
-        with pytest.raises(NotImplementedError, match=name):
-            tR.calibrate_budgets(tm, rc, ts, rays, tf)
+        assert dataclasses.asdict(tR.calibrate_budgets(tm, rc, ts, rays, tf)) \
+            == dataclasses.asdict(jR.calibrate_budgets(jm, jrc, js,
+                                                       jnp.asarray(rays), jf)), \
+            name

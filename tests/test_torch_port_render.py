@@ -244,47 +244,59 @@ def test_render_chunk_is_what_render_rays_passes_the_kernel(tmp_path,
 def test_unported_options_raise(tmp_path):
     """The production path (head_topk "auto", empty-space skipping), direct
     VM sampling (use_fused=False, fused=None) and training renders (is_train
-    with rng) are ported and run; what the port still lacks raises
-    NotImplementedError naming it: the L1 budget of the calibration
-    (l2_only=False), heavy/light bucketing (what calibration picks with
-    termination=False on this field), iter/rank head selection, head dedup,
-    span gathers, baked heads and the distilled-feature heads (a mesh
-    renders: tests/test_torch_port_parallel.py)."""
+    with rng) are ported and run, and so is every render option the port
+    once refused (``fidelity.OPTIONS``: the L1 budget of the calibration,
+    heavy/light bucketing, iter/rank head selection, head dedup, span
+    gathers, baked heads), each rendering as the JAX package's render_frames
+    does (maps at fp32 summation-order tolerance, 3e-2 with baked heads); on
+    the dense path head selection has nothing to select and renders as
+    "sort". What the port still lacks raises NotImplementedError naming it:
+    the distilled-feature heads. Span gathers on the dense path, which has
+    no spans, raise ValueError (the JAX package raises TypeError there; a
+    mesh renders: tests/test_torch_port_parallel.py)."""
     ckpt = _checkpoint(tmp_path / "field.npz", {})
     cfg = _cfg(TConfig)
     p, m, r, s, _ = trender.load_model_for_inference(ckpt, cfg, 2,
                                                      device="cpu")
+    jp, jm, jr, js, _ = jrender.load_model_for_inference(ckpt, _cfg(JConfig),
+                                                         2)
     assert r.head_topk == 8
-    frames = [TFrame("0", _rays(64, 0), *([None] * 6))]
+    rays = _rays(64, 0)
+    frames = [TFrame("0", rays, *([None] * 6))]
+    jframes = [JFrame("0", rays, *([None] * 6))]
     assert trender.render_frames(p, m, r, s, frames,
                                  device="cpu")[0]["rgb"].shape == (64, 3)
-    with pytest.raises(NotImplementedError, match="use_l1"):
-        trender.render_frames(p, m, r, s, frames, l2_only=False, device="cpu")
-    light = dataclasses.replace(r, max_subsegments_light=4, heavy_fraction=0.5)
-    with pytest.raises(NotImplementedError, match="max_subsegments_light"):
-        trender.render_frames(p, m, light, s, frames, termination=False,
-                              device="cpu")
-    with pytest.raises(NotImplementedError, match="bake_heads"):
-        trender.render_frames(p, m, r, s, frames, device="cpu",
-                              bake_heads=True)
+    # one chunk of the frame's 64 rays (the default 8,192 would pad it)
+    for option, (changes, kw) in tfid.OPTIONS.items():
+        got = trender.render_frames(p, m, dataclasses.replace(r, **changes),
+                                    s, frames, chunk=64, device="cpu",
+                                    **kw)[0]
+        want = jrender.render_frames(jp, jm, dataclasses.replace(jr, **changes),
+                                     js, jframes, chunk=64, **kw)[0]
+        bar = (dict(atol=3e-2, rtol=0) if option == "baked"
+               else dict(atol=2e-5, rtol=1e-4))
+        for key in MAP_KEYS:
+            np.testing.assert_allclose(got[key], want[key], **bar,
+                                       err_msg=f"{option}: {key}")
     assert trender.render_frames(p, m, r, s, frames, use_fused=False,
                                  device="cpu")[0]["rgb"].shape == (64, 3)
-    # every unported option is refused, on the dense and production paths;
-    # the bf16 atlas and bf16 heads are ported and are not
-    # (head_dedup_cells needs head_topk)
-    for rcfg, dedup in ((_dense(r), ()), (r, (("head_dedup_cells", 4),))):
-        for field, value in (("fine_span_rows", 4), ("head_select", "rank"),
-                             ("head_select", "iter"), *dedup):
-            with pytest.raises(NotImplementedError, match=field):
-                trender.render_frames(
-                    p, m, dataclasses.replace(rcfg, **{field: value}), s,
-                    frames, device="cpu")
+    dense = _dense(r)
+    sort = trender.render_frames(p, m, dense, s, frames, chunk=64,
+                                 device="cpu")[0]
+    for mode in ("rank", "iter"):
+        got = trender.render_frames(
+            p, m, dataclasses.replace(dense, head_select=mode), s, frames,
+            chunk=64, device="cpu")[0]
+        for key in MAP_KEYS:
+            np.testing.assert_array_equal(got[key], sort[key])
+    with pytest.raises(ValueError, match="coarse_stride"):
+        trender.render_frames(p, m, dataclasses.replace(dense, fine_span_rows=4),
+                              s, frames, device="cpu")
     for field in ("atlas_dtype", "head_dtype"):
         bf16 = dataclasses.replace(r, **{field: "bfloat16"})
         assert trender.render_frames(p, m, bf16, s, frames,
                                      device="cpu")[0]["rgb"].shape == (64, 3)
     rays = torch.from_numpy(_rays(8, 0))
-    dense = _dense(r)
     assert tR.render_rays(p, m, dense, s, rays)["rgb"].shape == (8, 3)
     train = tR.render_rays(p, m, dense, s, rays, torch.Generator(),
                            is_train=True)
@@ -292,11 +304,22 @@ def test_unported_options_raise(tmp_path):
     distilled = dataclasses.replace(m, use_distilled_features_semantic=True)
     with pytest.raises(NotImplementedError, match="distilled"):
         tR.render_rays(p, distilled, dense, s, rays)
-    for fn in (tR.render_instance_features, tR.render_segment_features):
+    # the aux passes select their top-k heads in every mode, as JAX's
+    jrender_mod = jrender.R
+    for fn, jfn in ((tR.render_instance_features,
+                     jrender_mod.render_instance_features),
+                    (tR.render_segment_features,
+                     jrender_mod.render_segment_features)):
         with pytest.raises(NotImplementedError, match="distilled"):
             fn(p, distilled, dense, s, rays)
-        with pytest.raises(NotImplementedError, match="head_select"):
-            fn(p, m, dataclasses.replace(dense, head_select="rank"), s, rays)
+        for mode in ("rank", "iter"):
+            rc = dict(head_topk=4, head_select=mode)
+            got = fn(p, m, dataclasses.replace(dense, **rc), s, rays)
+            want = jfn(jp, jm, dataclasses.replace(_dense(jr), **rc), js,
+                       jnp.asarray(rays.numpy()))
+            np.testing.assert_allclose(got[0].detach().numpy(),
+                                       np.asarray(want[0]), atol=2e-5,
+                                       rtol=1e-4, err_msg=mode)
     # HDBSCAN is ported (slice 1c): clustering with it runs; these
     # features have no thing pixel, so every pixel is noise
     assert tcluster.cluster(np.zeros((200, 4), np.float32), 0.1, 1,
