@@ -207,7 +207,29 @@ Phases, each printing JSON lines with their seconds:
              ranks share one card: not a scaling number), the all-reduce
              bytes a step and the milliseconds of one all-reduce of that
              size, and each rank's kernel launches;
-14. profile - only with ``--profile``: one more warm render of the 4 val
+14. distilled_r5b - r5b with distilled-feature heads grafted on
+             (``inference/fidelity.py::write_distilled_checkpoint``: a
+             seeded 96-d ``feature`` VM branch at r5b's grid, its basis, the
+             96-256-256-64 ``feature_mlp`` and 64 input rows on each head's
+             first layer, r5b's optimizer state carried over) and unit-norm
+             64-d targets on its scene (``distilled_targets``): (a) the
+             golden step (``train/resume.py::golden_step``) with
+             ``distilled_config`` (both distilled inputs, the feature gate
+             open) held to the eager JAX golden ``contrastive_lift_tpu_torch/
+             testdata/r5b_distilled_golden.npz`` at train_r5b's bars with
+             ``loss_feat`` among the losses and non-zero; (b) the production
+             render of the 4 val frames from the grafted checkpoint (launch
+             counts zeroed just before and read just after), cold and warm,
+             held to the golden at main_production's bars (budgets equal,
+             maps within 3e-2, PQ^scene and masked PQ within 0.5 pt, the
+             same warnings) with a float32 launch of the fused density
+             kernel; (c) the ``distilled`` map of the render's first chunk
+             (``fidelity.distilled_chunk``) within 3e-2 of the golden's, its
+             rows of unit norm where a ray hits; then 3 warm steps. Prints
+             the warm steps/s and peak memory beside train_r5b's, the warm
+             render rays/s beside main_production's and the phase's kernel
+             launches, with the card's name and power limit;
+15. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
@@ -221,7 +243,8 @@ Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
 on the render-chunk inputs, the fused form also on the production chunk,
 the loop chunk and the CLI chunk, with its launches in main_production, in
 each option of options_r5b, in train_loop_r5b's render, in cli_r5b, in
-tools_r5b and, summed over the ranks, in ddp_r5b; the span form timed on
+tools_r5b, summed over the ranks in ddp_r5b, and in distilled_r5b's
+render; the span form timed on
 the span chunk with its launches in the span render) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -242,8 +265,10 @@ STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
 CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
 TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
 OPTIONS_GOLDEN = GOLDEN.with_name("r5b_options_golden.npz")
+DISTILLED_GOLDEN = GOLDEN.with_name("r5b_distilled_golden.npz")
 # warm steps of train_r5b after step 1, and the sampler seed of those
 TRAIN_STEPS = 10
+DISTILLED_STEPS = 3
 TRAIN_STEP_SEED = 1
 # train_loop_r5b: r5b's configuration and widths, cut to 8 train frames
 # (24 steps an epoch) and 4 epochs, with every phase open by the last
@@ -1218,6 +1243,7 @@ def phase_train_r5b(profile: bool):
           f"{peak / 2**30:.2f} GiB on {card}", flush=True)
     if profile:
         profile_train(one_step, state, setup, res["aux_head_topk"], card)
+    return steps_per_s, peak
 
 
 def profile_train(one_step, state, setup, k: int, card: str, top: int = 15):
@@ -1888,6 +1914,152 @@ def phase_ddp_r5b():
     return two["launches"]
 
 
+def phase_distilled_r5b(train_warm_steps_per_second: float,
+                        train_peak_bytes: int,
+                        production_warm_rays_per_second: float):
+    """r5b with grafted distilled-feature heads: the golden step, the
+    production render and its first chunk's distilled map held to the JAX
+    golden, then warm steps. Returns the density-kernel launches of the
+    render."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+    from contrastive_lift_tpu_torch.train import resume
+    from contrastive_lift_tpu_torch.train.step import make_train_step
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    t_phase = time.perf_counter()
+    with np.load(DISTILLED_GOLDEN) as g:
+        gold = {k: g[k] for k in g.files}
+    scene = fid.distilled_targets(fid.e2e_scene(*fid.R5B_SCENE),
+                                  int(gold["distilled_seed"]))
+    rcfg_render = fid.distilled_render_config(scene.image_dim)
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+        t0 = time.perf_counter()
+        ckpt = fid.write_distilled_checkpoint(Path(tmp) / "distilled.npz",
+                                              int(gold["distilled_seed"]))
+        graft_s = time.perf_counter() - t0
+        # (a) step 1 against the golden
+        res = resume.golden_step(ckpt, fid.distilled_config(), scene, gold,
+                                 device="cuda")
+        bad = resume.check_train_step(res, gold, resume.DISTILLED_METRICS)
+        if not res["metrics"]["loss_feat"] > 0:
+            bad.append(f"loss_feat {res['metrics']['loss_feat']} is not "
+                       "positive: the feature gate is closed")
+        # (b) the production render, launch counts zeroed just before
+        bi.reset_launches()
+        prod = fid.run_production(ckpt, scene, device="cuda",
+                                  cfg=rcfg_render)
+        launches = launch_counts()
+        warm = fid.run_production(ckpt, scene, device="cuda",
+                                  cfg=rcfg_render)
+        # (c) the first chunk's distilled map
+        dist = fid.distilled_chunk(ckpt, scene, device="cuda").cpu().numpy()
+    n_rays = sum(len(f.rays) for f in scene.val_frames)
+    budgets = {f: getattr(prod["rcfg"], f) for f in fid.BUDGET_FIELDS}
+    gold_budgets = {f: gold[f"budget_{f}"].item() for f in fid.BUDGET_FIELDS}
+    gold_warnings = [str(w) for w in gold["warnings"]]
+    map_err = map_errors(prod, DISTILLED_GOLDEN)
+    gold_scores = golden(DISTILLED_GOLDEN)[2]
+    rows = dist[gold["distilled_ray_index"]]
+    dist_err = float(np.abs(rows - gold["distilled"]).max())
+    norms = np.linalg.norm(dist, axis=-1)
+    hit = np.linalg.norm(gold["distilled"], axis=-1) > 0.5
+    norm_err = float(np.abs(norms[gold["distilled_ray_index"]][hit]
+                            - 1.0).max())
+    for run in (prod, warm):
+        got = {f: getattr(run["rcfg"], f) for f in fid.BUDGET_FIELDS}
+        if got != gold_budgets:
+            bad.append(f"render budgets {got} vs the JAX golden's "
+                       f"{gold_budgets}")
+        if ([fid.guardrail(m) for m in run["warnings"]]
+                != [fid.guardrail(m) for m in gold_warnings]):
+            bad.append(f"warnings {run['warnings']}; the JAX golden raised "
+                       f"{gold_warnings}")
+        bad.extend(f"{key} {run[key]} vs the JAX golden's {gold_scores[key]}"
+                   for key in ("pq_scene", "pq_masked")
+                   if not abs(run[key] - gold_scores[key]) <= PQ_TOL)
+    bad.extend(f"{key} map differs from the JAX golden by {err}"
+               for key, err in map_err.items() if not err <= BF16_MAP_TOL)
+    if not dist_err <= BF16_MAP_TOL:
+        bad.append(f"distilled map differs from the JAX golden by {dist_err}")
+    if not (hit.any() and norm_err <= 1e-4):
+        bad.append(f"distilled rows are not of unit norm: {norm_err}")
+    if launches["sample_density_brick"].get("float32", 0) < 1:
+        bad.append("the distilled render never launched the float32 "
+                   "sample_density_brick kernel")
+    # warm steps on the port's own samplers and generator
+    setup = res["setup"]
+    cfg = setup.cfg
+    step = make_train_step(cfg, setup.mcfg, setup.rcfg, setup.gates,
+                           setup.class_weights, setup.state.params,
+                           aux_head_topk=res["aux_head_topk"])
+    state = res["state"]
+    gen = torch.Generator(device="cuda").manual_seed(int(cfg.seed or 0))
+    rng = np.random.default_rng(TRAIN_STEP_SEED)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, feat_losses = [], []
+    for _ in range(1 + DISTILLED_STEPS):
+        t = time.perf_counter()
+        bm, bi_, bs = resume.step_batches(setup, rng)
+        state, m = step(state, setup.state_r, bm, bi_, bs, gen,
+                        setup.lr_scale, setup.lambda_dist_reg)
+        m = {k: float(v) for k, v in m.items()}
+        times.append(time.perf_counter() - t)
+        feat_losses.append(m["loss_feat"])
+        if not all(np.isfinite(v) for v in m.values()):
+            bad.append(f"a warm step's metric is not finite: {m}")
+    peak = torch.cuda.max_memory_allocated()
+    steps_per_s = DISTILLED_STEPS / sum(times[1:])
+    emit({"phase": "distilled_r5b", "card": card,
+          "aux_head_topk": res["aux_head_topk"],
+          "golden_aux_head_topk": gold["aux_head_topk"].item(),
+          "metrics": {m: res["metrics"][m] for m in resume.DISTILLED_METRICS},
+          "golden": {m: float(gold[f"metric_{m}"])
+                     for m in resume.DISTILLED_METRICS},
+          "max_sketch_err": {
+              name: max(resume.sketch_error(a, b) for a, b in
+                        zip(res[f"sketch_{name}"], gold[f"sketch_{name}"]))
+              for name in resume.SKETCHES},
+          "launches": launches, "budgets": budgets,
+          "golden_budgets": gold_budgets, "map_max_abs_err": map_err,
+          "distilled_max_abs_err": dist_err,
+          "distilled_norm_max_err": norm_err,
+          **{k: prod[k] for k in ("pq_scene", "pq_masked", "sq", "rq",
+                                  "warnings")},
+          "golden_scores": gold_scores,
+          "render_seconds": prod["render_seconds"],
+          "warm_render_seconds": warm["render_seconds"],
+          "warm_rays_per_second": n_rays / warm["render_seconds"],
+          "main_production_warm_rays_per_second":
+              production_warm_rays_per_second,
+          "step_seconds": times, "warm_steps_per_second": steps_per_s,
+          "train_r5b_warm_steps_per_second": train_warm_steps_per_second,
+          "max_memory_allocated_bytes": peak,
+          "train_r5b_max_memory_allocated_bytes": train_peak_bytes,
+          "loss_feat": feat_losses, "graft_seconds": graft_s,
+          "part_seconds": res["seconds"], "failures": bad,
+          "seconds": time.perf_counter() - t_phase})
+    print(f"distilled_r5b: {steps_per_s:.3f} warm steps/s (train_r5b "
+          f"{train_warm_steps_per_second:.3f}), peak {peak / 2**30:.2f} GiB "
+          f"(train_r5b {train_peak_bytes / 2**30:.2f}); warm render "
+          f"{n_rays / warm['render_seconds']:.0f} rays/s (main_production "
+          f"{production_warm_rays_per_second:.0f}); fused float32 launches "
+          f"{launches['sample_density_brick'].get('float32', 0)} on {card}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"distilled_r5b: {bad[:10]}")
+    return launches
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
     on the render-chunk inputs (the dense main path's own) and its launches
@@ -1895,8 +2067,8 @@ def kernel_line(records, launches):
     on the production chunk and its launches in ``main_production``, and
     with its time and error on the loop chunk and its launches in
     ``train_loop_r5b``'s render, and on the CLI chunk with its launches in
-    ``cli_r5b``; every entry with its launches in ``tools_r5b`` and, summed
-    over the ranks, in ``ddp_r5b``."""
+    ``cli_r5b``; every entry with its launches in ``tools_r5b``, summed
+    over the ranks in ``ddp_r5b``, and in ``distilled_r5b``'s render."""
     entries = []
     for kname in ("brick_interp", "sample_density_brick"):
         for dtype in DTYPES:
@@ -1929,6 +2101,8 @@ def kernel_line(records, launches):
                 for name, counts in launches["options"].items()}
             entry["ddp_r5b_launches"] = sum(rank[kname].get(dtype, 0)
                                             for rank in launches["ddp"])
+            entry["distilled_r5b_launches"] = launches["distilled"][kname] \
+                .get(dtype, 0)
             loop = records.get((kname, "loop_chunk", dtype))
             if loop is not None:
                 entry.update(loop_chunk_ms=loop["ms"],
@@ -1960,7 +2134,9 @@ def kernel_line(records, launches):
             "random_bound_ms": records[(kname, "random", dtype)]["bound_ms"],
             "options_r5b_launches": {
                 name: counts[kname].get(dtype, 0)
-                for name, counts in launches["options"].items()}})
+                for name, counts in launches["options"].items()},
+            "distilled_r5b_launches": launches["distilled"][kname]
+            .get(dtype, 0)})
     return {"kernels": entries}
 
 
@@ -1982,7 +2158,7 @@ def main() -> int:
               "needs a CUDA card", file=sys.stderr)
         return 2
     for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN, STAGE_GOLDEN,
-                   CLI_GOLDEN, TOOLS_GOLDEN, OPTIONS_GOLDEN,
+                   CLI_GOLDEN, TOOLS_GOLDEN, OPTIONS_GOLDEN, DISTILLED_GOLDEN,
                    ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
@@ -1998,7 +2174,7 @@ def main() -> int:
     launches["production"], production_warm_rays_per_second = \
         phase_main_production(dense_warm_rays_per_second)
     launches["options"] = phase_options_r5b(production_warm_rays_per_second)
-    phase_train_r5b(args.profile)
+    train_warm, train_peak = phase_train_r5b(args.profile)
     phase_stage_r5b()
     launches["train_loop"], loop_records = phase_train_loop_r5b()
     records.update(loop_records)
@@ -2006,6 +2182,8 @@ def main() -> int:
     records.update(cli_records)
     launches["tools"] = phase_tools_r5b()
     launches["ddp"] = phase_ddp_r5b()
+    launches["distilled"] = phase_distilled_r5b(
+        train_warm, train_peak, production_warm_rays_per_second)
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

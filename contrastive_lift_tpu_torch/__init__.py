@@ -7,13 +7,14 @@ and ``numpy`` only, never JAX or the JAX package, so it runs on a GPU host
 without JAX.
 
 Ported so far: checkpoints (with optimizer state), the TensoRF field and
-heads, the brick-atlas density kernel (``csrc/brick_interp.cu``, hand-written
-for ``sm_90a``, with its span form), the dense and production renders with
+heads with the distilled-feature heads, the latent-conditioned model, the
+brick-atlas density kernel (``csrc/brick_interp.cu``, hand-written for
+``sm_90a``, with its span form), the dense and production renders with
 every render option, mean-shift and HDBSCAN clustering and PQ^scene, the
-training step and loop, the CLIs and tools, and data parallel training and
-rendering. Entry points take ``device=`` (default ``"cuda"``) and never fall
-back to the CPU on their own; what is not ported yet (the distilled-feature
-heads) raises ``NotImplementedError``.
+training step and loop, the CLIs and tools, observability, and data
+parallel training and rendering. Entry points take ``device=`` (default
+``"cuda"``) and never fall back to the CPU on their own. Not ported yet:
+preprocessing (``data/preprocessing/*``).
 """
 
 __version__ = "0.1.0"

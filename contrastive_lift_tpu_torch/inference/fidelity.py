@@ -226,11 +226,11 @@ def production_config(rcfg):
                                head_dtype="bfloat16")
 
 
-def load_production(ckpt, scene, device="cuda"):
+def load_production(ckpt, scene, device="cuda", cfg=None):
     """(cfg, params, model config, production render config, render state,
     meta) of checkpoint ``ckpt`` for ``scene``, at the gate's step_ratio
-    0.25."""
-    cfg = e2e_config(scene.image_dim)
+    0.25; ``cfg`` (default ``e2e_config``) gives the model's heads."""
+    cfg = cfg or e2e_config(scene.image_dim)
     params, mcfg, rcfg, state_r, meta = load_model_for_inference(
         ckpt, cfg, scene.num_semantic_classes, step_ratio=0.25, head_topk=8,
         device=device)
@@ -276,16 +276,17 @@ def production_chunk(ckpt, scene, device="cuda", frame: int = 0,
 
 
 def run_production(ckpt, scene, device="cuda", bandwidth: float = BANDWIDTH,
-                   chunk: int = PRODUCTION_CHUNK, option: str = None) -> dict:
+                   chunk: int = PRODUCTION_CHUNK, option: str = None,
+                   cfg=None) -> dict:
     """The production render of ``scene``'s val frames from checkpoint
     ``ckpt`` (``render_frames`` with its defaults at ``production_config``,
     or with the one change of ``OPTIONS[option]``), then clustering and
-    PQ^scene. Returns the maps, the scores, the render config the chunks
-    used (``rcfg``; its ``BUDGET_FIELDS`` are the calibrated ones), the
-    guardrail maxima, the guardrail warnings raised and the seconds each
-    stage took."""
+    PQ^scene; ``cfg`` as in ``load_production``. Returns the maps, the
+    scores, the render config the chunks used (``rcfg``; its
+    ``BUDGET_FIELDS`` are the calibrated ones), the guardrail maxima, the
+    guardrail warnings raised and the seconds each stage took."""
     cfg, params, mcfg, rcfg, state_r, meta = load_production(ckpt, scene,
-                                                             device)
+                                                             device, cfg)
     changes, render_kw = OPTIONS[option] if option else ({}, {})
     rcfg = dataclasses.replace(rcfg, **changes)
     t0 = time.perf_counter()
@@ -1142,3 +1143,176 @@ def check_ddp(sharded: dict, unsharded: dict) -> tuple:
             bad.append(f"rank {rank} never launched the float32 "
                        "sample_density_brick kernel")
     return bad, measured
+
+
+# ---------------------------------------------------------------------------
+# r5b with distilled-feature heads grafted on (distilled_r5b)
+# ---------------------------------------------------------------------------
+
+# the seed of the grafted branch and heads, and of the feature targets
+DISTILLED_SEED = 0
+# r5b's configuration with both distilled inputs on and trained through
+# (r5b resumes at epoch 29, past the default feature_optimization_end_epoch
+# of 5, which would close the feature gate: it is raised to r5b's max_epoch)
+DISTILLED_OVERRIDES = {"use_distilled_features_semantic": True,
+                       "use_distilled_features_instance": True,
+                       "feature_stop_grad": False}
+DISTILLED_WIDTH = 64   # the distilled head's output, appended to the heads
+DISTILLED_BASIS = 96   # the feature branch's projected width
+# the first layers that take the distilled input
+DISTILLED_HEAD_INPUTS = (("semantic_mlp",), ("instance_mlp", "fast"),
+                         ("instance_mlp", "slow"))
+
+
+def distilled_config(path=R5B_CONFIG) -> Config:
+    """r5b's training configuration with ``DISTILLED_OVERRIDES`` and the
+    feature gate open through r5b's last epoch."""
+    cfg = load_config(path, DISTILLED_OVERRIDES)
+    cfg.feature_optimization_end_epoch = cfg.max_epoch
+    return cfg
+
+
+def distilled_render_config(image_dim) -> Config:
+    """The PQ gate's render configuration (``e2e_config``) with the
+    distilled heads of ``DISTILLED_OVERRIDES``."""
+    return dataclasses.replace(e2e_config(image_dim), **DISTILLED_OVERRIDES)
+
+
+def _uniform(rng, shape, fan_in: int) -> np.ndarray:
+    """``_linear_init``'s U(-1/sqrt(fan_in), 1/sqrt(fan_in)), float32."""
+    bound = 1.0 / np.sqrt(fan_in)
+    return rng.uniform(-bound, bound, shape).astype(np.float32)
+
+
+def graft_distilled(arrays: dict, seed: int = DISTILLED_SEED) -> dict:
+    """r5b's parameter tree (numpy, as ``load_checkpoint`` gives it) with
+    distilled-feature heads grafted on, every new value drawn by
+    ``np.random.default_rng(seed)`` in this order: a ``feature`` VM branch
+    at the checkpoint's grid with the appearance branch's component counts
+    (planes, then lines, axis by axis; ``_svd_grid_init``'s 0.1 N(0,1)),
+    ``feature_basis`` [sum of components, 96], ``feature_mlp`` (96 -> 256 ->
+    256 -> 64, weight then bias per layer) at ``_linear_init``'s scale, and
+    64 rows appended last to the first layer of ``semantic_mlp`` and of the
+    fast and slow ``instance_mlp``, at ``_linear_init``'s scale for the
+    widened fan-in (not zero: the heads then depend on the distilled
+    input). The input is not modified."""
+    from ..ops.grid_sample import MATRIX_MODE, VECTOR_MODE
+    rng = np.random.default_rng(seed)
+    out = dict(arrays)
+    planes0 = arrays["density"]["planes"][0]
+    grid = (planes0.shape[2], planes0.shape[1],
+            arrays["density"]["lines"][0].shape[1])
+    comps = [p.shape[0] for p in arrays["appearance"]["planes"]]
+    planes, lines = [], []
+    for i in range(3):
+        m0, m1 = MATRIX_MODE[i]
+        planes.append(0.1 * rng.standard_normal(
+            (comps[i], grid[m1], grid[m0]), dtype=np.float32))
+        lines.append(0.1 * rng.standard_normal(
+            (comps[i], grid[VECTOR_MODE[i]]), dtype=np.float32))
+    out["feature"] = {"planes": tuple(planes), "lines": tuple(lines)}
+    out["feature_basis"] = {"w": _uniform(rng, (sum(comps), DISTILLED_BASIS),
+                                          sum(comps))}
+    layers = []
+    for din, dout in ((DISTILLED_BASIS, 256), (256, 256),
+                      (256, DISTILLED_WIDTH)):
+        w = _uniform(rng, (din, dout), din)
+        layers.append({"w": w, "b": _uniform(rng, (dout,), din)})
+    out["feature_mlp"] = {"layers": layers}
+    for path in DISTILLED_HEAD_INPUTS:
+        parent = out
+        for key in path[:-1]:
+            parent[key] = dict(parent[key])
+            parent = parent[key]
+        mlp = dict(parent[path[-1]])
+        first = dict(mlp["layers"][0])
+        din = first["w"].shape[0] + DISTILLED_WIDTH
+        first["w"] = np.concatenate(
+            [first["w"], _uniform(rng, (DISTILLED_WIDTH, first["w"].shape[1]),
+                                  din)])
+        mlp["layers"] = [first] + list(mlp["layers"][1:])
+        parent[path[-1]] = mlp
+    return out
+
+
+def graft_opt_state(cfg, arrays: dict, grafted: dict, opt_leaves):
+    """(main, instance) Adam states of the port for ``grafted`` from the
+    stored optimizer leaves of ``arrays``: every group keeps its step count
+    and its leaves' moments; the new leaves start from zero moments, and a
+    widened first layer's moments gain zero rows for its new inputs."""
+    from ..io.checkpoint import opt_state_from_leaves
+    from ..io.convert import params_from_numpy
+    from ..train.state import AdamState, make_optimizers
+    from ..utils.tree import tree_leaves_with_path
+    old = params_from_numpy(arrays, "cpu")
+    new = params_from_numpy(grafted, "cpu")
+    main_tx, inst_tx, _ = make_optimizers(cfg, old)
+    states = opt_state_from_leaves(main_tx, inst_tx, opt_leaves, old)
+    leaves = dict(tree_leaves_with_path(new))
+    out = []
+    for state, tx in zip(states, make_optimizers(cfg, new)[:2]):
+        def grow(moments, label):
+            grown = {}
+            for path in tx.paths(label):
+                z = torch.zeros_like(leaves[path])
+                if path in moments:
+                    z[tuple(slice(0, n) for n in moments[path].shape)] = \
+                        moments[path]
+                grown[path] = z
+            return grown
+
+        out.append({label: AdamState(state[label].count,
+                                     grow(state[label].mu, label),
+                                     grow(state[label].nu, label))
+                    for label in tx.groups})
+    return tuple(out)
+
+
+def write_distilled_checkpoint(path, seed: int = DISTILLED_SEED,
+                               ckpt=R5B_CKPT) -> Path:
+    """r5b's checkpoint with ``graft_distilled``'s heads and
+    ``graft_opt_state``'s optimizer state, at r5b's grid, AABB, epoch and
+    step, written to ``path`` in the checkpoint format both packages
+    read."""
+    from ..io.checkpoint import load_checkpoint, save_checkpoint
+    arrays, meta = load_checkpoint(ckpt)
+    grafted = graft_distilled(arrays, seed)
+    opt = graft_opt_state(distilled_config(), arrays, grafted,
+                          meta["opt_leaves"])
+    save_checkpoint(path, grafted, grid_dim=meta["grid_dim"],
+                    bbox_aabb=meta["bbox_aabb"], epoch=meta["epoch"],
+                    global_step=meta["global_step"],
+                    config_dict=dataclasses.asdict(distilled_config()),
+                    opt_state=opt)
+    return Path(path)
+
+
+def distilled_targets(scene, seed: int = DISTILLED_SEED):
+    """``scene`` with unit-norm 64-d distilled-feature targets on every
+    train and then val frame (``feats``, drawn by
+    ``np.random.default_rng(seed)``), as the JAX package's
+    ``tests/test_variant_paths.py`` attaches them; returns the scene."""
+    rng = np.random.default_rng(seed)
+    for f in scene.train_frames + scene.val_frames:
+        feats = rng.normal(size=(f.rays.shape[0], DISTILLED_WIDTH)).astype(
+            np.float32)
+        f.feats = feats / np.linalg.norm(feats, axis=-1, keepdims=True)
+    return scene
+
+
+def distilled_chunk(ckpt, scene, device="cuda",
+                    n_rays: int = PRODUCTION_CHUNK) -> torch.Tensor:
+    """The ``distilled`` map [n_rays, 64] of ``render_rays`` on the first
+    ``n_rays`` rays of val frame 0 (the first chunk of ``run_production``'s
+    render), on the production grids with the budgets ``render_frames``
+    calibrates on ``scene``'s val frames."""
+    dev = resolve_device(device)
+    _, params, mcfg, rcfg, state_r, _ = load_production(
+        ckpt, scene, dev, distilled_render_config(scene.image_dim))
+    rays = scene.val_frames[0].rays.astype(np.float32)[:n_rays]
+    with torch.no_grad():
+        rcfg, fused = prepare_render(params, mcfg, rcfg, state_r,
+                                     scene.val_frames)
+        return R.render_rays(params, mcfg, rcfg, state_r,
+                             torch.from_numpy(rays).to(dev),
+                             fused=fused)["distilled"]

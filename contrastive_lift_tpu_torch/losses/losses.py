@@ -43,8 +43,8 @@ def mse_loss(pred, target, count=None):
     return _mean((pred - target) ** 2, count)
 
 
-def l1_loss(pred, target):
-    return torch.mean(torch.abs(pred - target))
+def l1_loss(pred, target, count=None):
+    return _mean(torch.abs(pred - target), count)
 
 
 def tv_loss_2d(x: torch.Tensor) -> torch.Tensor:

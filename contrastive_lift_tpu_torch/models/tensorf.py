@@ -7,8 +7,10 @@ package's tree with torch tensors at the leaves
 dense grids of ``ops/fused_grid.py`` (``feats=``) or, without them, from the
 VM factors sampled directly (``ops/grid_sample.py``). The grid lifecycle
 (``upsample_volume_grid``, ``shrink_volume_grid``) resizes the factors
-between training stages. Not ported yet: the distilled-feature heads
-(``render_distilled``, ``semantic_backbone_feats``).
+between training stages. The distilled-feature head (``render_distilled``:
+the 96-d projected ``feature`` branch through ``feature_mlp`` and a tanh)
+feeds its 64-d output to the semantic and instance heads as their last
+input columns, after the positional encoding.
 """
 from __future__ import annotations
 
@@ -231,16 +233,6 @@ def _branch_feature(params, name: str, xyz: torch.Tensor) -> torch.Tensor:
     return vm_feature(g["planes"], g["lines"], xyz) @ params[f"{name}_basis"]["w"]
 
 
-def render_distilled(params, cfg: TensoRFConfig, xyz, feats=None):
-    raise NotImplementedError("render_distilled: the distilled-feature head "
-                              "is not ported")
-
-
-def semantic_backbone_feats(params, cfg: TensoRFConfig, xyz):
-    raise NotImplementedError("semantic_backbone_feats: the semantic MLP's "
-                              "backbone features are not ported")
-
-
 def dino_head_apply(params, x: torch.Tensor) -> torch.Tensor:
     h = x @ params["mlp"]["w"] + params["mlp"]["b"]
     h = h / (torch.linalg.norm(h, dim=-1, keepdim=True) + 1e-12)
@@ -270,13 +262,37 @@ def render_appearance(params, cfg: TensoRFConfig, viewdirs, xyz,
     return torch.sigmoid(out)
 
 
+def render_distilled(params, cfg: TensoRFConfig, xyz,
+                     feats=None) -> torch.Tensor:
+    """The 64-d distilled-feature head: tanh(feature_mlp(feats)), the MLP in
+    float32; ``feats`` are the 96-d dense-grid features of the ``feature``
+    branch, else the factors are sampled."""
+    if feats is None:
+        feats = _branch_feature(params, "feature", xyz)
+    return torch.tanh(mlp_apply(params["feature_mlp"], feats))
+
+
 def _head_input(cfg, pe, xyz_or_feat, distilled):
+    """[input, PE(input), distilled]: the distilled features come last."""
     indata = [xyz_or_feat]
     if pe > 0:
         indata.append(positional_encoding(xyz_or_feat, pe))
     if distilled is not None:
         indata.append(distilled)
     return torch.cat(indata, -1)
+
+
+def semantic_backbone_feats(params, cfg: TensoRFConfig, xyz) -> torch.Tensor:
+    """The semantic MLP's penultimate features (every layer but the last),
+    without the distilled input: the hook of the feature-regularization
+    variant."""
+    feat = xyz if cfg.use_semantic_mlp else _branch_feature(params, "semantic",
+                                                            xyz)
+    pe = cfg.pe_sem if cfg.use_semantic_mlp else 0
+    h = _head_input(cfg, pe, feat, None)
+    for layer in params["semantic_mlp"]["layers"][:-1]:
+        h = torch.relu(h @ layer["w"] + layer["b"])
+    return h
 
 
 def render_semantics(params, cfg: TensoRFConfig, xyz, distilled=None,

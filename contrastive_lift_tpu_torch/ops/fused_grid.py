@@ -227,7 +227,8 @@ def build_render_grids(params: dict, mcfg, rcfg, state_r, compact: bool = True,
     """What the render reads: the density brick atlas of ``atlas_dtype``
     ("float32" or "bfloat16"), a dense projected grid of ``feature_dtype``
     for every VM feature branch of ``params`` (appearance; the semantic /
-    instance branches of grid-head models) and, with ``compact``, the
+    instance branches of grid-head models; the 96-d distilled ``feature``
+    branch) and, with ``compact``, the
     empty-space-skipping tables. Port of ``build_render_grids``.
 
     ``dense_override`` replaces the VM density grid with any [gx,gy,gz]
@@ -240,7 +241,7 @@ def build_render_grids(params: dict, mcfg, rcfg, state_r, compact: bool = True,
              else dense_override)
     fdtype = getattr(torch, feature_dtype)
     features = {name: build_dense_feature(params, name, fdtype)
-                for name in ("appearance", "semantic", "instance")
+                for name in ("appearance", "semantic", "instance", "feature")
                 if name in params}
     fused = FusedGrids(tuple(dense.shape),
                        build_brick_atlas(dense, getattr(torch, atlas_dtype)),

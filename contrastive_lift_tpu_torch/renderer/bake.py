@@ -37,23 +37,30 @@ def baked_width(mcfg) -> int:
 def _node_head_outputs(params, mcfg, xyz, grid_feats, compute_dtype):
     """Head outputs at [P, 3] normalized node coords: the semantic logits
     (before the softmax) and the instance features ([fast, slow] in
-    slow-fast mode). ``grid_feats``: the branch features of grid heads at
-    the same nodes. Port of ``_node_head_outputs``."""
+    slow-fast mode). ``grid_feats``: the branch features of grid heads, and
+    of the distilled ``feature`` branch, at the same nodes. The distilled
+    head runs here in ``compute_dtype`` (the render's ``render_distilled``
+    runs its MLP in float32), as in the JAX package. Port of
+    ``_node_head_outputs``."""
+    distilled = None
     if mcfg.use_distilled:
-        raise NotImplementedError("bake_head_tables: distilled-feature heads "
-                                  "(use_distilled_features_*) are not ported")
+        distilled = torch.tanh(tf.mlp_apply(params["feature_mlp"],
+                                            grid_feats["feature"],
+                                            compute_dtype))
     if mcfg.use_semantic_mlp:
         sem_feat, sem_pe = xyz, mcfg.pe_sem
     else:
         sem_feat, sem_pe = grid_feats["semantic"], 0
+    d = distilled if mcfg.use_distilled_features_semantic else None
     sem = tf.mlp_apply(params["semantic_mlp"],
-                       tf._head_input(mcfg, sem_pe, sem_feat, None),
+                       tf._head_input(mcfg, sem_pe, sem_feat, d),
                        compute_dtype)
     if mcfg.use_instance_mlp:
         ins_feat, ins_pe = xyz, mcfg.pe_ins
     else:
         ins_feat, ins_pe = grid_feats["instance"], 0
-    ins_in = tf._head_input(mcfg, ins_pe, ins_feat, None)
+    d_i = distilled if mcfg.use_distilled_features_instance else None
+    ins_in = tf._head_input(mcfg, ins_pe, ins_feat, d_i)
     ins = tf.mlp_apply(params["instance_mlp"]["fast"], ins_in, compute_dtype)
     if mcfg.slow_fast_mode:
         slow = tf.mlp_apply(params["instance_mlp"]["slow"], ins_in,
@@ -78,7 +85,8 @@ def bake_head_tables(params, mcfg, fused: FusedGrids,
     g1 = torch.tensor((gx - 1, gy - 1, gz - 1), dtype=torch.float32,
                       device=dev)
     grids = {name: build_dense_feature(params, name)
-             for name in ("semantic", "instance") if name in params}
+             for name in ("semantic", "instance", "feature")
+             if name in params}
     table = torch.empty((n, baked_width(mcfg)), dtype=torch.bfloat16,
                         device=dev)
     with torch.no_grad():

@@ -812,28 +812,43 @@ def _head_weights(rcfg, weight):
 
 def _app_block(params, mcfg, fused, xyz_s, view_r, mask_s, compute_dtype,
                dedup=None):
-    """rgb [Rn, Ks, 3] at samples xyz_s [Rn, Ks, 3] of rays with view
-    directions view_r [Rn, 3], zero where ``mask_s`` is False; with
-    ``dedup`` the features are read once per unique cell."""
+    """(rgb [Rn, Ks, 3], distilled [Rn, Ks, 64] or None) at samples xyz_s
+    [Rn, Ks, 3] of rays with view directions view_r [Rn, 3], zero where
+    ``mask_s`` is False; the distilled features only with a distilled head.
+    With ``dedup`` the features are read once per unique cell."""
     Rn, Ks = xyz_s.shape[:2]
     flat = xyz_s.reshape(-1, 3)
+    mf = mask_s.reshape(-1, 1)
     vd = view_r[:, None, :].expand(Rn, Ks, 3).reshape(-1, 3)
     rgb = tf.render_appearance(
         params, mcfg, vd, flat, compute_dtype,
         feats=_branch_feats_dedup(fused, "appearance", flat, dedup, Ks))
-    return torch.where(mask_s.reshape(-1, 1), rgb, 0.0).reshape(Rn, Ks, 3)
+    dist = None
+    if mcfg.use_distilled:
+        dist = tf.render_distilled(
+            params, mcfg, flat,
+            feats=_branch_feats_dedup(fused, "feature", flat, dedup, Ks))
+        dist = torch.where(mf, dist, 0.0).reshape(Rn, Ks, -1)
+    return torch.where(mf, rgb, 0.0).reshape(Rn, Ks, 3), dist
 
 
-def _semins_block(params, mcfg, fused, xyz_s, mask_s, compute_dtype,
-                  dedup=None, baked: bool = False):
+def _semins_block(params, mcfg, rcfg, fused, xyz_s, dist_s, mask_s,
+                  compute_dtype, dedup=None, baked: bool = False):
     """(semantics, instances) [Rn, Ks, C] at samples xyz_s, zero where
-    ``mask_s`` is False; with ``dedup`` the grid features are read once per
-    unique cell; with ``baked`` both are read from the baked table
-    (``renderer/bake.py``: semantic logits, then instance features) in
-    place of the head MLPs."""
+    ``mask_s`` is False; ``dist_s`` [Rn, Ks, 64], the masked distilled
+    features of the same samples (None without a distilled head), is the
+    heads' distilled input, detached with ``feature_stop_grad``. With
+    ``dedup`` the grid features are read once per unique cell; with
+    ``baked`` both are read from the baked table (``renderer/bake.py``:
+    semantic logits, then instance features) in place of the head MLPs."""
     Rn, Ks = xyz_s.shape[:2]
     flat = xyz_s.reshape(-1, 3)
     mf = mask_s.reshape(-1, 1)
+    dfh = None
+    if dist_s is not None:
+        dfh = dist_s.reshape(Rn * Ks, -1)
+        if rcfg.feature_stop_grad:
+            dfh = dfh.detach()
     if baked:
         C = mcfg.num_semantic_classes
         bk = sample_feature_fused(fused, "baked", flat)
@@ -842,9 +857,9 @@ def _semins_block(params, mcfg, fused, xyz_s, mask_s, compute_dtype,
             sem = torch.softmax(sem, dim=-1)
     else:
         f_sem, f_ins = _semins_feats_dedup(fused, flat, dedup, Ks)
-        sem = tf.render_semantics(params, mcfg, flat, None, compute_dtype,
+        sem = tf.render_semantics(params, mcfg, flat, dfh, compute_dtype,
                                   feats=f_sem)
-        ins = tf.render_instances(params, mcfg, flat, None, compute_dtype,
+        ins = tf.render_instances(params, mcfg, flat, dfh, compute_dtype,
                                   feats=f_ins)
     return (torch.where(mf, sem, 0.0).reshape(Rn, Ks, -1),
             torch.where(mf, ins, 0.0).reshape(Rn, Ks, -1))
@@ -857,16 +872,21 @@ def _heads_one_pass(params, mcfg, rcfg, fused, rays, xyz_h, head_weight,
     first k2), composited with ``head_weight``; with ``m_full`` the rgb and
     instance maps are completed by the dropped above-threshold mass; with
     ``dedup`` the feature rows are read once per unique cell, with
-    ``baked`` the sem/ins heads read the baked table."""
-    rgb = _app_block(params, mcfg, fused, xyz_h, rays[:, 3:6], app_mask,
-                     compute_dtype, dedup)
-    semantics, instances = _semins_block(params, mcfg, fused, xyz_h[:, :k2],
-                                         app_mask[:, :k2], compute_dtype,
-                                         dedup, baked)
+    ``baked`` the sem/ins heads read the baked table. The distilled map
+    (with a distilled head) is composited over all Sh columns with the
+    semantic weights and unit-normalised; it is not completed."""
+    rgb, dist = _app_block(params, mcfg, fused, xyz_h, rays[:, 3:6], app_mask,
+                           compute_dtype, dedup)
+    semantics, instances = _semins_block(
+        params, mcfg, rcfg, fused, xyz_h[:, :k2],
+        None if dist is None else dist[:, :k2], app_mask[:, :k2],
+        compute_dtype, dedup, baked)
     rgb_map = composite(head_weight, rgb)
     w = _head_weights(rcfg, head_weight)
     semantic_map = torch.sum(w[:, :k2] * semantics, dim=-2)
     instance_map = torch.sum(w[:, :k2] * instances, dim=-2)
+    distilled_map = (None if dist is None
+                     else _unit_rows(torch.sum(w * dist, dim=-2)))
     if m_full is not None:
         mask_f = app_mask.to(head_weight.dtype)
         rgb_map = rgb_map * _tail_ratio(
@@ -875,7 +895,12 @@ def _heads_one_pass(params, mcfg, rcfg, fused, rays, xyz_h, head_weight,
             instance_map = instance_map * _tail_ratio(
                 m_full, torch.sum(head_weight[:, :k2] * mask_f[:, :k2], -1)
             )[:, None]
-    return rgb_map, semantic_map, instance_map
+    return rgb_map, semantic_map, instance_map, distilled_map
+
+
+def _unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` over their norm (+1e-12): the distilled map."""
+    return x / (torch.linalg.norm(x, dim=-1, keepdim=True) + 1e-12)
 
 
 def _heads_two_phase(params, mcfg, rcfg: RenderConfig, fused, rays, xyz_k,
@@ -885,7 +910,9 @@ def _heads_two_phase(params, mcfg, rcfg: RenderConfig, fused, rays, xyz_k,
     heaviest samples; pass B on the remaining samples of the
     ``head_term_fraction`` rays with the most above-threshold mass left,
     added back per ray (the maps are weighted sums). ``head_tail`` grows to
-    the largest mass a non-survivor drops. Port of ``_heads_two_phase``."""
+    the largest mass a non-survivor drops. The distilled map sums pass A's
+    kA columns and the survivors' pass B with the semantic weights; it is
+    not completed (it is unit-normalised). Port of ``_heads_two_phase``."""
     R, k = w_k.shape
     kA = rcfg.head_term_first
     k2A = min(kA, k2)
@@ -900,25 +927,32 @@ def _heads_two_phase(params, mcfg, rcfg: RenderConfig, fused, rays, xyz_k,
     w_h = _head_weights(rcfg, w_k)                      # [R, k, 1]
     viewdirs = rays[:, 3:6]
 
-    rgbA = _app_block(params, mcfg, fused, xyz_k[:, :kA], viewdirs,
-                      app_mask[:, :kA], compute_dtype)
-    semA, insA = _semins_block(params, mcfg, fused, xyz_k[:, :k2A],
+    rgbA, distA = _app_block(params, mcfg, fused, xyz_k[:, :kA], viewdirs,
+                             app_mask[:, :kA], compute_dtype)
+    semA, insA = _semins_block(params, mcfg, rcfg, fused, xyz_k[:, :k2A],
+                               None if distA is None else distA[:, :k2A],
                                app_mask[:, :k2A], compute_dtype)
     rgb_map = torch.sum(w_k[:, :kA, None] * rgbA, dim=-2)
     semantic_map = torch.sum(w_h[:, :k2A] * semA, dim=-2)
     instance_map = torch.sum(w_h[:, :k2A] * insA, dim=-2)
+    distilled_map = (None if distA is None
+                     else torch.sum(w_h[:, :kA] * distA, dim=-2))
 
     xyzB = xyz_k[surv, kA:]
     maskB = app_mask[surv, kA:]
-    rgbB = _app_block(params, mcfg, fused, xyzB, viewdirs[surv], maskB,
-                      compute_dtype)
+    rgbB, distB = _app_block(params, mcfg, fused, xyzB, viewdirs[surv], maskB,
+                             compute_dtype)
     w_kB = w_k[surv, kA:]
     w_hB = w_h[surv, kA:]
     rgb_map = rgb_map.index_add(0, surv, torch.sum(w_kB[..., None] * rgbB,
                                                    dim=-2))
+    if distB is not None:
+        distilled_map = _unit_rows(distilled_map.index_add(
+            0, surv, torch.sum(w_hB * distB, dim=-2)))
     nB2 = k2 - k2A
     if nB2 > 0:
-        semB, insB = _semins_block(params, mcfg, fused, xyzB[:, :nB2],
+        semB, insB = _semins_block(params, mcfg, rcfg, fused, xyzB[:, :nB2],
+                                   None if distB is None else distB[:, :nB2],
                                    maskB[:, :nB2], compute_dtype)
         semantic_map = semantic_map.index_add(
             0, surv, torch.sum(w_hB[:, :nB2] * semB, dim=-2))
@@ -937,7 +971,7 @@ def _heads_two_phase(params, mcfg, rcfg: RenderConfig, fused, rays, xyz_k,
                 m_ins = m_ins.index_add(
                     0, surv, torch.sum(w_kB[:, :nB2] * maskB_f[:, :nB2], -1))
             instance_map = instance_map * _tail_ratio(m_full, m_ins)[:, None]
-    return rgb_map, semantic_map, instance_map, head_tail
+    return rgb_map, semantic_map, instance_map, distilled_map, head_tail
 
 
 def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
@@ -956,15 +990,16 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
     with ``head_topk`` the heads run on k samples per ray (``head_select``),
     with ``head_dedup_cells`` their feature rows are read once per unique
     cell, and grids with a baked table (``renderer/bake.py``) give the
-    semantic and instance heads' outputs.
+    semantic and instance heads' outputs. With a distilled-feature head
+    (``use_distilled_features_*``) ``"distilled"`` is its unit-normalised
+    64-d map, which also feeds the semantic and/or instance heads
+    (detached there with ``feature_stop_grad``); without one it is
+    zeros((1, 1)).
 
     ``is_train`` with ``rng`` (a ``torch.Generator`` or ``RayDraws``)
     jitters the samples and flips the background coin; training takes no
     two-phase heads, no tail completion, no dedup and no baked heads, as in
     the JAX package."""
-    if mcfg.use_distilled:
-        raise NotImplementedError("render_rays: distilled-feature heads "
-                                  "(use_distilled_features_*) are not ported")
     draws = ray_draws(rng, rays.shape[0], rays.device) if is_train else None
     jitter = draws.jitter if draws is not None else None
     two_level = (rcfg.coarse_stride is not None and fused is not None
@@ -1009,19 +1044,22 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
     baked = fused is not None and not is_train and "baked" in fused.features
     if (topk and 0 < rcfg.head_term_first < Sh and not is_train
             and dedup is None and not baked):
-        rgb_map, semantic_map, instance_map, head_tail = _heads_two_phase(
+        (rgb_map, semantic_map, instance_map, distilled_map,
+         head_tail) = _heads_two_phase(
             params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
             compute_dtype, head_tail, m_full)
     else:
-        rgb_map, semantic_map, instance_map = _heads_one_pass(
+        rgb_map, semantic_map, instance_map, distilled_map = _heads_one_pass(
             params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
             compute_dtype, m_full, dedup, baked)
     coin = draws.coin if draws is not None else None
     out = _finish_maps(rcfg, coin, weight, z_vals, torch.sum(weight, -1),
                        rgb_map, _semantic_map_postprocess(rcfg, semantic_map),
                        instance_map, dist_reg)
-    out.update(budget_tail=budget_tail, head_tail=head_tail,
-               dedup_tail=dedup_tail)
+    if distilled_map is None:
+        distilled_map = torch.zeros((1, 1), device=weight.device)
+    out.update(distilled=distilled_map, budget_tail=budget_tail,
+               head_tail=head_tail, dedup_tail=dedup_tail)
     return out
 
 
@@ -1100,10 +1138,10 @@ def aux_density_weights(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
 
 def _aux_heads(params, mcfg, rcfg, state, rays, rng, is_train, fused):
     """Shared front of the aux passes: (weight_k, flat xyz_k, app_mask,
-    compute dtype, distance map, tail, budget_tail)."""
-    if mcfg.use_distilled:
-        raise NotImplementedError("distilled-feature heads "
-                                  "(use_distilled_features_*) are not ported")
+    compute dtype, distance map, tail, budget_tail, the heads' distilled
+    input). The distilled input (None without a distilled head) is the
+    distilled head on the sampled factors, zero where ``app_mask`` is
+    False, detached with ``feature_stop_grad``."""
     xyz_n, z_vals, weight, budget_tail = aux_density_weights(
         params, mcfg, rcfg, state, rays, rng, is_train, fused)
     distance_map = torch.sum(weight * z_vals, -1)
@@ -1113,8 +1151,15 @@ def _aux_heads(params, mcfg, rcfg, state, rays, rng, is_train, fused):
     # the heads honor head_dtype; compositing promotes back to float32
     compute_dtype = (torch.bfloat16 if rcfg.head_dtype == "bfloat16"
                      else torch.float32)
-    return (weight, xyz_n.reshape(-1, 3), app_mask, compute_dtype,
-            distance_map, tail, budget_tail)
+    flat = xyz_n.reshape(-1, 3)
+    dfh = None
+    if mcfg.use_distilled:
+        dfh = torch.where(app_mask, tf.render_distilled(params, mcfg, flat),
+                          0.0)
+        if rcfg.feature_stop_grad:
+            dfh = dfh.detach()
+    return (weight, flat, app_mask, compute_dtype, distance_map, tail,
+            budget_tail, dfh)
 
 
 def render_instance_features(params, mcfg: tf.TensoRFConfig,
@@ -1128,10 +1173,10 @@ def render_instance_features(params, mcfg: tf.TensoRFConfig,
     the ``_aux_topk`` and skipping guardrails. Port of
     ``render_instance_features``."""
     (weight, flat, app_mask, compute_dtype, distance_map, tail,
-     budget_tail) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
-                               is_train, fused)
+     budget_tail, dfh) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
+                                    is_train, fused)
     R, S = weight.shape
-    instances = tf.render_instances(params, mcfg, flat, None, compute_dtype)
+    instances = tf.render_instances(params, mcfg, flat, dfh, compute_dtype)
     instances = torch.where(app_mask, instances, 0.0).reshape(R, S, -1)
     instance_map = composite(weight, instances)
     points_xyz = (rays[:, 0:3] + distance_map[:, None] * rays[:, 3:6]).detach()
@@ -1149,10 +1194,10 @@ def render_segment_features(params, mcfg: tf.TensoRFConfig,
     """Semantic-logit pass on stop-gradient weights, for the segment-grouping
     loss. Port of ``render_segment_features``."""
     (weight, flat, app_mask, compute_dtype, _, tail,
-     budget_tail) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
-                               is_train, fused)
+     budget_tail, dfh) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
+                                    is_train, fused)
     R, S = weight.shape
-    segments = tf.render_semantics(params, mcfg, flat, None, compute_dtype)
+    segments = tf.render_semantics(params, mcfg, flat, dfh, compute_dtype)
     segments = torch.where(app_mask, segments, 0.0).reshape(R, S, -1)
     segment_map = _semantic_map_postprocess(rcfg, composite(weight, segments))
     if return_tail:

@@ -152,6 +152,7 @@ class Trainer:
         frames = self.scene.train_frames
         self.main_sampler = RayPoolSampler(
             frames, self.scene.num_semantic_classes,
+            load_feats=self.mcfg.use_distilled,
             load_depth=cfg.lambda_depth > 0)
         self.inst_sampler = InstanceBundleSampler(
             frames, cfg.max_rays_instances, cfg.max_labels_per_image)

@@ -41,6 +41,8 @@ N_PROBES = 16
 TRAIN_METRICS = ("loss_main", "loss_rgb", "loss_semantics", "loss_dist_reg",
                  "loss_segment", "loss_clustering", "aux_budget_tail",
                  "aux_head_tail", "main_head_tail")
+# a model with distilled-feature heads also holds its feature loss
+DISTILLED_METRICS = TRAIN_METRICS + ("loss_feat",)
 SKETCHES = ("grad_main", "grad_inst", "after", "delta")
 METRIC_RTOL = 2e-3
 SKETCH_TOL = 4.5e-2
@@ -115,6 +117,7 @@ def restore_training(ckpt_path, cfg, scene: SceneData,
     frames = scene.train_frames
     samplers = (
         RayPoolSampler(frames, scene.num_semantic_classes,
+                       load_feats=mcfg.use_distilled,
                        load_depth=cfg.lambda_depth > 0),
         InstanceBundleSampler(frames, cfg.max_rays_instances,
                               cfg.max_labels_per_image),
@@ -212,17 +215,17 @@ def golden_step(ckpt_path, cfg, scene: SceneData, golden,
     return out
 
 
-def check_train_step(res: dict, golden) -> list:
+def check_train_step(res: dict, golden, metrics=TRAIN_METRICS) -> list:
     """The gates of ``golden_step``'s result against the golden: the
-    calibrated budget equal, every loss within METRIC_RTOL, every guardrail
-    within METRIC_RTOL or GUARDRAIL_ATOL, every leaf's sketches within
-    SKETCH_TOL.
+    calibrated budget equal, each of ``metrics`` (losses within
+    METRIC_RTOL, guardrails within METRIC_RTOL or GUARDRAIL_ATOL), every
+    leaf's sketches within SKETCH_TOL.
     Returns the failures, as text."""
     bad = []
     if res["aux_head_topk"] != np.asarray(golden["aux_head_topk"]).item():
         bad.append(f"aux_head_topk {res['aux_head_topk']} != "
                    f"{np.asarray(golden['aux_head_topk']).item()}")
-    for m in TRAIN_METRICS:
+    for m in metrics:
         got, want = float(res["metrics"][m]), float(golden[f"metric_{m}"])
         atol = GUARDRAIL_ATOL if m.endswith("_tail") else 0.0
         if not abs(got - want) <= METRIC_RTOL * abs(want) + atol:

@@ -2,9 +2,9 @@
 
 Port of ``contrastive_lift_tpu/train/step.py``. One step of every open phase:
 
-  phase 1: render the main ray batch; MSE + TV + distortion + semantic CE,
-           plus the segment-grouping loss in the same backward pass; update
-           with the main Adam chain;
+  phase 1: render the main ray batch; MSE + TV + distortion + distilled
+           feature L1 + semantic CE, plus the segment-grouping loss in the
+           same backward pass; update with the main Adam chain;
   EMA:     slow <- 0.9^I slow + (1 - 0.9^I) fast (slow_fast mode, I images);
   phase 2: render the per-image instance ray bundles on stop-gradient
            density, apply the instance loss, update with the instance chain.
@@ -128,12 +128,13 @@ def main_phase_loss(params, cfg, mcfg: tf.TensoRFConfig, rcfg: R.RenderConfig,
     losses in the metrics this rank's shares of the global ones, leaves the
     TV term out (``metrics["tv"]``: lambda_rgb times the TV loss, for the
     step to add once) and gives ``metrics["mse"]``, the share of the mse,
-    in place of the psnr."""
+    in place of the psnr.
+
+    With a distilled head and ``gates.features_on`` the loss adds the
+    ``feature`` branch's TV and ``loss_feat``, the L1 distance of the
+    distilled map from ``batch["feats"]`` (reported as 0 otherwise)."""
     if head_topk and rcfg.head_topk is None:
         rcfg = dataclasses.replace(rcfg, head_topk=int(head_topk))
-    if mcfg.use_distilled:
-        raise NotImplementedError("main_phase_loss: distilled-feature "
-                                  "training is not ported")
     fused = None
     if getattr(cfg, "fused_main_density", False):
         # built inside the loss: the gradient flows through the densify
@@ -160,11 +161,21 @@ def main_phase_loss(params, cfg, mcfg: tf.TensoRFConfig, rcfg: R.RenderConfig,
     if cfg.lambda_rgb > 0:
         loss_rgb = L.mse_loss(rgb, rgbs, count_rgb)
         loss_tv = L.total_tv_loss(params, cfg, _gate_epoch(cfg, gates))
+        loss_feat = torch.zeros((), device=rgb.device)
+        if mcfg.use_distilled and gates.features_on:
+            loss_tv = loss_tv + (L.branch_tv(params, "feature", 1e-2, 1e-3)
+                                 * cfg.lambda_tv_distilled_features)
+            feats = batch["feats"]
+            loss_feat = L.l1_loss(out["distilled"], feats,
+                                  None if n_rays is None
+                                  else n_rays * feats.shape[1])
         if counts is None:
             loss = cfg.lambda_rgb * (loss_rgb + loss_tv
-                                     + dist_reg * lambda_dist_reg)
+                                     + dist_reg * lambda_dist_reg
+                                     + loss_feat * cfg.lambda_feat)
         else:
-            loss = cfg.lambda_rgb * (loss_rgb + dist_reg * lambda_dist_reg)
+            loss = cfg.lambda_rgb * (loss_rgb + dist_reg * lambda_dist_reg
+                                     + loss_feat * cfg.lambda_feat)
             metrics["tv"] = cfg.lambda_rgb * loss_tv
         if cfg.lambda_depth > 0 and "depth" in batch:
             depth_err = torch.abs(out["depth"] - batch["depth"]) * mask
@@ -172,8 +183,7 @@ def main_phase_loss(params, cfg, mcfg: tf.TensoRFConfig, rcfg: R.RenderConfig,
                                                             min=1.0)
             loss = loss + cfg.lambda_depth * loss_depth
             metrics["loss_depth"] = loss_depth
-        metrics.update(loss_rgb=loss_rgb,
-                       loss_feat=torch.zeros((), device=rgb.device),
+        metrics.update(loss_rgb=loss_rgb, loss_feat=loss_feat,
                        loss_dist_reg=dist_reg)
     loss_sem = torch.zeros((), device=rgb.device)
     if gates.semantics_on:

@@ -406,9 +406,11 @@ def test_production_render_on_card_matches_cpu(cuda_device, term_first):
     assert np.mean(np.abs(cpu.maps[0]["instances"]).sum(-1) > 0) > 0.2
 
 
-def _train_world(device):
+def _train_world(device, **cfg_kw):
     """A grid-24 slow-fast field (the port's own init, seed 0) with an opaque
-    slab, on the synthetic sphere scene, and its first batches and draws."""
+    slab, on the synthetic sphere scene, and its first batches and draws;
+    ``cfg_kw`` changes the config (with distilled heads the scene gets
+    ``fidelity.distilled_targets`` and the main batch its ``feats``)."""
     from contrastive_lift_tpu_torch.config import Config
     from contrastive_lift_tpu_torch.data.base import (InstanceBundleSampler,
                                                       RayPoolSampler,
@@ -417,8 +419,10 @@ def _train_world(device):
     from contrastive_lift_tpu_torch.factory import build_model, class_weights_for
     from contrastive_lift_tpu_torch.train.step import draw_step
 
-    scene = make_synthetic_scene(num_spheres=4, num_train=6, num_val=2,
-                                 image_dim=(24, 32), seed=0)
+    from contrastive_lift_tpu_torch.inference.fidelity import distilled_targets
+
+    scene = distilled_targets(make_synthetic_scene(
+        num_spheres=4, num_train=6, num_val=2, image_dim=(24, 32), seed=0))
     cfg = Config(batch_size=256, chunk=256, min_grid_dim=24, max_grid_dim=32,
                  max_instances=3, instance_loss_mode="slow_fast",
                  use_DINO_style=True, max_rays_instances=128,
@@ -426,7 +430,7 @@ def _train_world(device):
                  max_rays_segments=64, chunk_segment=128, seed=0, lr=2e-3,
                  weight_class_0=1.0, late_semantic_optimization=0,
                  instance_optimization_epoch=3,
-                 segment_optimization_epoch=6).resolve_epochs()
+                 segment_optimization_epoch=6, **cfg_kw).resolve_epochs()
     mcfg, params, rcfg, state_r = build_model(
         cfg, scene.num_semantic_classes, scene.scene_bounds, (24, 24, 24),
         device="cpu")
@@ -440,7 +444,8 @@ def _train_world(device):
     params["density"] = {"planes": tuple(planes), "lines": tuple(lines)}
     rng = np.random.default_rng(1)
     frames = scene.train_frames
-    batches = (RayPoolSampler(frames, 2).sample(rng, 256),
+    batches = (RayPoolSampler(frames, 2,
+                              load_feats=mcfg.use_distilled).sample(rng, 256),
                InstanceBundleSampler(frames, 128, 16).sample(rng, 1),
                SegmentBundleSampler(frames, 64).sample(rng, 4))
     draws = draw_step(torch.Generator().manual_seed(3), cfg, 256, 256,
@@ -497,6 +502,104 @@ def test_train_step_on_card_matches_cpu(cuda_device):
         assert g_cpu[phase]
         for path, g in g_cpu[phase].items():
             assert _cos(g_gpu[phase][path], g) > 0.999, (phase, path)
+
+
+DISTILLED_KW = dict(use_distilled_features_semantic=True,
+                    use_distilled_features_instance=True)
+
+
+@pytest.mark.cuda
+def test_distilled_train_step_on_card_matches_cpu(cuda_device):
+    """One distilled step of every phase (feature gate open, features not
+    detached) on the card and on the CPU from the same parameters, batches
+    and draws (TF32 off): metrics within rtol 2e-3 with loss_feat non-zero,
+    every gradient with a cosine above 0.999 per leaf, the feature branch's
+    among them."""
+    from contrastive_lift_tpu_torch.renderer import render as R
+    from contrastive_lift_tpu_torch.train.state import init_train_state
+    from contrastive_lift_tpu_torch.train.step import (StepDraws, TrainGates,
+                                                       make_train_step)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg, mcfg, rcfg, state_r, params, weights, batches, draws = \
+        _train_world("cpu", **DISTILLED_KW)
+    assert mcfg.use_distilled and "feats" in batches[0]
+    gates = TrainGates(True, True, True, features_on=True)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        p = _to(params, dev)
+        sr = R.RenderState(*(t.to(dev) for t in state_r))
+        d = StepDraws(R.RayDraws(*(t.to(dev) for t in draws.main)),
+                      draws.seg_jitter.to(dev), draws.inst_jitter.to(dev))
+        step = make_train_step(cfg, mcfg, rcfg, gates, weights.to(dev), p,
+                               aux_head_topk=32, keep_grads=True)
+        _, metrics = step(init_train_state(cfg, p), sr, *batches, d, 0.5,
+                          0.001)
+        out[str(dev)] = ({k: float(v) for k, v in metrics.items()},
+                         step.grads)
+    (m_cpu, g_cpu), (m_gpu, g_gpu) = out["cpu"], out[str(cuda_device)]
+    assert m_cpu["loss_feat"] > 0
+    for name, v in m_cpu.items():
+        assert abs(m_gpu[name] - v) <= 2e-3 * abs(v) + 1e-6, name
+    assert any(path[0] == "feature" and g.any()
+               for path, g in g_cpu["main"].items())
+    for phase in ("main", "inst"):
+        for path, g in g_cpu[phase].items():
+            assert _cos(g_gpu[phase][path], g) > 0.999, (phase, path)
+
+
+@pytest.mark.cuda
+def test_distilled_production_render_on_card_matches_cpu(cuda_device):
+    """A grid-14 field with fidelity.graft_distilled's heads rendered on the
+    production path (fixed budgets, top-8 fp32 heads in two phases with
+    every ray surviving pass A, TF32 off) on the card == on the CPU: maps
+    and the distilled map within 1e-4; the kernel launches on the card."""
+    import dataclasses
+
+    from contrastive_lift_tpu_torch.factory import make_model_config, make_render_config
+    from contrastive_lift_tpu_torch.inference.fidelity import (
+        distilled_render_config, graft_distilled)
+    from contrastive_lift_tpu_torch.inference.render import prepare_render
+    from contrastive_lift_tpu_torch.io.convert import params_from_numpy
+    from contrastive_lift_tpu_torch.renderer import render as R
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(2)
+    tree = graft_distilled(_field(rng), 0)
+    bbox = np.array([[-1.0] * 3, [1.0] * 3], np.float32)
+    cfg = distilled_render_config((16, 24))
+    mcfg = make_model_config(cfg, 2)
+    assert mcfg.use_distilled
+    rcfg = dataclasses.replace(
+        make_render_config(cfg, bbox, (14,) * 3, mcfg, 0.25), head_topk=8,
+        max_subsegments=8, term_first=4, term_fraction=1.0,
+        head_term_first=4, head_term_fraction=1.0)
+    o = rng.uniform(-0.3, 0.3, (500, 3)) + [0.0, 0.0, -2.0]
+    d = rng.normal(size=(500, 3))
+    d[:, 2] = np.abs(d[:, 2]) + 1.0
+    d /= np.linalg.norm(d, axis=-1, keepdims=True)
+    rays = np.concatenate([o, d, np.full((500, 1), 0.05),
+                           np.full((500, 1), 5.0)], -1).astype(np.float32)
+    outs = {}
+    for dev in ("cpu", cuda_device):
+        params = params_from_numpy(tree, dev)
+        state = R.make_render_state(bbox, (14,) * 3, 0.25, device=dev)
+        n0 = bi.launch_total(bi.sample_density_brick)
+        with torch.no_grad():
+            rc, fused = prepare_render(params, mcfg, rcfg, state, [],
+                                       auto_budget=False)
+            outs[str(dev)] = R.render_rays(
+                params, mcfg, rc, state, torch.from_numpy(rays).to(dev),
+                fused=fused)
+        assert (bi.launch_total(bi.sample_density_brick) - n0 > 0) == (
+            dev == cuda_device)
+    cpu, card = outs["cpu"], outs[str(cuda_device)]
+    for key in ("rgb", "semantics", "instances", "depth", "distilled"):
+        np.testing.assert_allclose(card[key].cpu().numpy(),
+                                   cpu[key].numpy(), atol=1e-4, rtol=0,
+                                   err_msg=key)
+    assert np.mean(np.abs(cpu["distilled"].numpy()).sum(-1) > 0) > 0.2
 
 
 @pytest.mark.cuda

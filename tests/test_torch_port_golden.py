@@ -106,6 +106,7 @@ STAGE_GOLDEN = GOLDEN.with_name("r5b_stage_golden.npz")
 CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
 TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
 OPTIONS_GOLDEN = GOLDEN.with_name("r5b_options_golden.npz")
+DISTILLED_GOLDEN = GOLDEN.with_name("r5b_distilled_golden.npz")
 RAY_STRIDE = 12
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 # a golden ray counts as moved by jit where a map differs by more than this
@@ -117,6 +118,7 @@ STAGE_COMMAND = COMMAND + " stage"
 CLI_COMMAND = COMMAND + " cli"
 TOOLS_COMMAND = COMMAND + " tools"
 OPTIONS_COMMAND = COMMAND + " options"
+DISTILLED_COMMAND = COMMAND + " distilled"
 # the training golden's sampler seed
 TRAIN_SEED = 0
 
@@ -197,22 +199,42 @@ def write_production_golden(path=PRODUCTION_GOLDEN) -> dict:
     and the number of feature slots, the largest ``budget_tail`` and
     ``head_tail`` over the chunks, the guardrail warnings, and its
     provenance."""
+    from tools.pq_fidelity_gate import e2e_config, e2e_scene
+
+    scene = e2e_scene(*R5B_SCENE)
+    out = _jax_production_render(R5B_CKPT, e2e_config(scene.image_dim),
+                                 scene)
+    out.pop("first_chunk")
+    out.update(commit=_commit(), command=PRODUCTION_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
+def _commit() -> str:
+    return subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
+                          capture_output=True, text=True).stdout.strip()
+
+
+def _jax_production_render(ckpt, cfg, scene) -> dict:
+    """What a production golden holds of the JAX package's eager production
+    render of ``scene``'s val frames from ``ckpt`` with ``cfg`` (see
+    ``write_production_golden``), without its provenance; ``first_chunk``
+    is the output of ``render_rays`` on the first chunk."""
     import warnings
 
     import jax
     jax.config.update("jax_platforms", "cpu")
     from contrastive_lift_tpu.inference import render as jrender
-    from tools.pq_fidelity_gate import cluster_maps, e2e_config, e2e_scene, pq_for
+    from tools.pq_fidelity_gate import cluster_maps, pq_for
 
-    scene = e2e_scene(*R5B_SCENE)
-    cfg = e2e_config(scene.image_dim)
     params, mcfg, rcfg, state_r, _ = jrender.load_model_for_inference(
-        R5B_CKPT, cfg, scene.num_semantic_classes, step_ratio=0.25,
+        ckpt, cfg, scene.num_semantic_classes, step_ratio=0.25,
         head_topk=8)
     rcfg = production_config(rcfg)
     n_rays = sum(len(f.rays) for f in scene.val_frames)
     idx = np.arange(0, n_rays, RAY_STRIDE)
-    calibrated, tails = [], []
+    calibrated, tails, outs = [], [], []
     R = jrender.R
     real_calibrate, real_render_rays = R.calibrate_budgets, R.render_rays
 
@@ -224,6 +246,8 @@ def write_production_golden(path=PRODUCTION_GOLDEN) -> dict:
     def render_rays_spy(*args, **kw):
         out = real_render_rays(*args, **kw)
         tails.append((float(out["budget_tail"]), float(out["head_tail"])))
+        if not outs:
+            outs.append({k: np.asarray(v) for k, v in out.items()})
         return out
 
     R.calibrate_budgets, R.render_rays = calibrate_spy, render_rays_spy
@@ -238,8 +262,6 @@ def write_production_golden(path=PRODUCTION_GOLDEN) -> dict:
     onehot = cluster_maps(frames, scene, BANDWIDTH, cfg.max_instances)
     pq, sq, rq, pq_m = pq_for(frames, onehot, scene, cfg.max_instances)
     (budgets, fused), = calibrated
-    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
-                            capture_output=True, text=True).stdout.strip()
     image_dim, num_train, checker_freq = R5B_SCENE
     out = {k: np.concatenate([f[k] for f in frames])[idx] for k in MAP_KEYS}
     out.update(
@@ -257,9 +279,7 @@ def write_production_golden(path=PRODUCTION_GOLDEN) -> dict:
         head_tail_max=max(t[1] for t in tails),
         warnings=np.asarray([str(w.message) for w in caught
                              if w.filename == jrender.__file__], dtype=str),
-        jit=False, commit=commit, command=PRODUCTION_COMMAND)
-    Path(path).parent.mkdir(parents=True, exist_ok=True)
-    np.savez_compressed(path, **out)
+        jit=False, first_chunk=outs[0])
     return out
 
 
@@ -359,11 +379,27 @@ def write_train_step_golden(path=TRAIN_GOLDEN) -> dict:
     package's phase losses on the same inputs; the step itself
     (``make_train_step``) gives the metrics and the parameters after it,
     and its main loss must equal the recomputed one."""
+    from contrastive_lift_tpu.config import load_config
+    from contrastive_lift_tpu_torch.inference.fidelity import R5B_CONFIG
+    from contrastive_lift_tpu_torch.train.resume import TRAIN_METRICS
+    from tools.pq_fidelity_gate import e2e_scene
+
+    out = _jax_train_step(R5B_CKPT, load_config(R5B_CONFIG),
+                          e2e_scene(*R5B_SCENE), TRAIN_METRICS)
+    out.update(commit=_commit(), command=TRAIN_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
+def _jax_train_step(ckpt, cfg, scene, metric_names) -> dict:
+    """What a training golden holds of one eager JAX step resumed from
+    ``ckpt`` with ``cfg`` on ``scene`` (see ``write_train_step_golden``),
+    without its provenance."""
     import jax
     jax.config.update("jax_platforms", "cpu")
     import jax.numpy as jnp
 
-    from contrastive_lift_tpu.config import load_config
     from contrastive_lift_tpu.data.base import (InstanceBundleSampler,
                                                 RayPoolSampler,
                                                 SegmentBundleSampler)
@@ -379,16 +415,12 @@ def write_train_step_golden(path=TRAIN_GOLDEN) -> dict:
     from contrastive_lift_tpu.train.state import (TrainState, ema_update_slow,
                                                   init_train_state,
                                                   make_optimizers)
-    from contrastive_lift_tpu_torch.inference.fidelity import R5B_CONFIG
-    from contrastive_lift_tpu_torch.train.resume import TRAIN_METRICS, leaf_sketches
+    from contrastive_lift_tpu_torch.train.resume import leaf_sketches
     from contrastive_lift_tpu_torch.utils.tree import (path_str,
                                                        tree_leaves_with_path)
-    from tools.pq_fidelity_gate import e2e_scene
     from types import SimpleNamespace
 
-    scene = e2e_scene(*R5B_SCENE)
-    cfg = load_config(R5B_CONFIG)
-    params, meta = load_checkpoint(R5B_CKPT)
+    params, meta = load_checkpoint(ckpt)
     params = jax.tree.map(jnp.asarray, params)
     grid_dim = tuple(meta["grid_dim"])
     bbox = np.asarray(meta["bbox_aabb"], np.float32)
@@ -410,7 +442,8 @@ def write_train_step_golden(path=TRAIN_GOLDEN) -> dict:
                                   cfg.warmup_epochs, cfg.warmup_multiplier)
     lambda_dist = cfg.lambda_dist_reg * (1 - np.exp(-0.25 * epoch))
     frames = scene.train_frames
-    main_s = RayPoolSampler(frames, scene.num_semantic_classes)
+    main_s = RayPoolSampler(frames, scene.num_semantic_classes,
+                            load_feats=mcfg.use_distilled)
     inst_s = InstanceBundleSampler(frames, cfg.max_rays_instances,
                                    cfg.max_labels_per_image)
     seg_s = SegmentBundleSampler(frames, cfg.max_rays_segments)
@@ -433,7 +466,7 @@ def write_train_step_golden(path=TRAIN_GOLDEN) -> dict:
         draw_inst_jitter=np.stack([
             np.asarray(jax.random.uniform(k, (bi["rays"].shape[1],)))
             for k in jax.random.split(rng_inst, bi["rays"].shape[0])]))
-    main_tx, inst_tx, _ = make_optimizers(cfg, params)
+    main_tx, inst_tx, labels = make_optimizers(cfg, params)
 
     with jax.disable_jit():
         k = Trainer._calibrate_aux_topk(stub, gates, epoch)
@@ -462,8 +495,19 @@ def write_train_step_golden(path=TRAIN_GOLDEN) -> dict:
                                   lambda_dist)
     assert abs(float(metrics["loss_main"]) - float(loss_main)) <= 1e-6 * abs(
         float(loss_main))
-    leaves = [tree_leaves_with_path(t) for t in (params, grads, grads_i,
-                                                 new_state.params)]
+    # the gradient each chain applies: zero on the leaves it does not train
+    # (a distilled input the instance heads take carries the instance loss
+    # back to the feature branch, which only the main chain trains)
+    trains = {"main": ("main_grid_wd", "main_grid", "main_net"),
+              "inst": ("inst_grid", "inst_net", "inst_slow")}
+    label_of = dict(tree_leaves_with_path(labels))
+
+    def applied(g, chain):
+        return [(p, v if label_of[p] in trains[chain] else np.zeros(v.shape))
+                for p, v in tree_leaves_with_path(g)]
+
+    leaves = [tree_leaves_with_path(params), applied(grads, "main"),
+              applied(grads_i, "inst"), tree_leaves_with_path(new_state.params)]
     out = {"leaf_paths": np.asarray([path_str(p) for p, _ in leaves[0]])}
     sketches = [leaf_sketches(i, *(np.asarray(t[i][1]) for t in leaves[1:]),
                               np.asarray(leaves[3][i][1])
@@ -471,17 +515,61 @@ def write_train_step_golden(path=TRAIN_GOLDEN) -> dict:
                 for i in range(len(leaves[0]))]
     for j, name in enumerate(("grad_main", "grad_inst", "after", "delta")):
         out[f"sketch_{name}"] = np.stack([s[j] for s in sketches])
-    commit = subprocess.run(["git", "rev-parse", "HEAD"], cwd=ROOT,
-                            capture_output=True, text=True).stdout.strip()
     image_dim, num_train, checker_freq = R5B_SCENE
     out.update(
-        {f"metric_{m}": float(metrics[m]) for m in TRAIN_METRICS},
+        {f"metric_{m}": float(metrics[m]) for m in metric_names},
         **draws, seed=TRAIN_SEED, aux_head_topk=k, epoch=epoch,
         global_step=global_step, lr_scale=lr_scale,
         lambda_dist_reg=lambda_dist, n_samples=rcfg.n_samples,
         image_dim=np.asarray(image_dim), num_train=num_train,
-        checker_freq=checker_freq, jit=False, commit=commit,
-        command=TRAIN_COMMAND)
+        checker_freq=checker_freq, jit=False)
+    return out
+
+
+def write_distilled_golden(path=DISTILLED_GOLDEN) -> dict:
+    """r5b with distilled-feature heads grafted on, with the JAX package,
+    eagerly; save the golden.
+
+    The checkpoint is ``inference/fidelity.py::write_distilled_checkpoint``'s
+    (r5b plus the seeded ``feature`` branch, ``feature_basis``,
+    ``feature_mlp`` and 64 input rows on each head's first layer, with
+    r5b's optimizer state carried over), the scene r5b's with
+    ``distilled_targets``. (a) One training step as
+    ``write_train_step_golden`` takes it, with ``distilled_config`` (both
+    distilled inputs, the feature gate open at epoch 29): its keys are the
+    training golden's (``loss_feat`` among the metrics), its sample count
+    ``step_n_samples``. (b) The production render as
+    ``write_production_golden`` renders it, with the PQ gate's config and
+    the distilled heads: its keys are the production golden's. (c) The
+    ``distilled`` map of that render's first chunk (the first 4,096 rays of
+    val frame 0) at every 12th ray: ``distilled`` at
+    ``distilled_ray_index``."""
+    import dataclasses
+    import tempfile
+
+    from contrastive_lift_tpu.config import load_config
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.train.resume import DISTILLED_METRICS
+    from tools.pq_fidelity_gate import e2e_config, e2e_scene
+
+    cfg = load_config(fid.R5B_CONFIG, fid.DISTILLED_OVERRIDES)
+    cfg.feature_optimization_end_epoch = cfg.max_epoch
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = fid.write_distilled_checkpoint(Path(tmp) / "distilled.npz")
+        step = _jax_train_step(
+            ckpt, cfg, fid.distilled_targets(e2e_scene(*R5B_SCENE)),
+            DISTILLED_METRICS)
+        scene = fid.distilled_targets(e2e_scene(*R5B_SCENE))
+        out = _jax_production_render(
+            ckpt, dataclasses.replace(e2e_config(scene.image_dim),
+                                      **fid.DISTILLED_OVERRIDES), scene)
+    first = out.pop("first_chunk")
+    step["step_n_samples"] = step.pop("n_samples")
+    out.update({k: v for k, v in step.items() if k not in out})
+    rows = np.arange(0, PRODUCTION_CHUNK, RAY_STRIDE)
+    out.update(distilled_ray_index=rows, distilled=first["distilled"][rows],
+               distilled_seed=fid.DISTILLED_SEED, commit=_commit(),
+               command=DISTILLED_COMMAND)
     Path(path).parent.mkdir(parents=True, exist_ok=True)
     np.savez_compressed(path, **out)
     return out
@@ -1248,6 +1336,168 @@ def test_port_tools_on_cpu_match_tools_golden(tools_run):
     assert all(np.isfinite(v).all() for v in imported["maps"].values())
 
 
+def test_distilled_golden_layout():
+    """The committed distilled golden: the training golden's layout for the
+    grafted checkpoint's leaves (the feature branch and the widened first
+    layers among them) with loss_feat non-zero, the production golden's
+    render keys, and the first chunk's distilled map at every 12th ray
+    with unit rows where a ray hits; under 1 MB."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.io.checkpoint import load_checkpoint
+    from contrastive_lift_tpu_torch.train.resume import (DISTILLED_METRICS,
+                                                         N_PROBES, SKETCHES)
+    from contrastive_lift_tpu_torch.utils.tree import (path_str,
+                                                       tree_leaves_with_path)
+    assert DISTILLED_GOLDEN.stat().st_size < 1 << 20
+    arrays, meta = load_checkpoint(R5B_CKPT)
+    grafted = fid.graft_distilled(arrays, fid.DISTILLED_SEED)
+    paths = [path_str(p) for p, _ in tree_leaves_with_path(grafted)]
+    with np.load(DISTILLED_GOLDEN) as g:
+        assert int(g["distilled_seed"]) == fid.DISTILLED_SEED
+        assert list(g["leaf_paths"]) == paths
+        assert "feature_mlp/layers/2/w" in paths
+        for name in SKETCHES:
+            assert g[f"sketch_{name}"].shape == (len(paths), 1 + N_PROBES)
+            assert np.isfinite(g[f"sketch_{name}"]).all()
+        for m in DISTILLED_METRICS:
+            assert np.isfinite(float(g[f"metric_{m}"])), m
+        assert float(g["metric_loss_feat"]) > 0
+        assert int(g["epoch"]) == meta["epoch"]
+        assert int(g["global_step"]) == meta["global_step"]
+        assert 0 < int(g["aux_head_topk"]) < int(g["step_n_samples"])
+        # the feature branch trained, with gradient and change
+        feat = np.char.startswith(g["leaf_paths"], "feature")
+        assert (g["sketch_grad_main"][feat, 0] > 0).all()
+        assert (g["sketch_delta"][feat, 0] > 0).all()
+        n = 4 * 64 * 96 // RAY_STRIDE
+        for key, width in (("rgb", 3), ("semantics", 2), ("instances", 6)):
+            assert g[key].shape == (n, width)
+            assert np.isfinite(g[key]).all()
+        assert int(g["n_samples"]) == 879 and int(g["n_chunks"]) == 8
+        assert (int(g["head_topk"]), str(g["head_dtype"])) == (8, "bfloat16")
+        for field in BUDGET_FIELDS:
+            assert g[f"budget_{field}"].shape == ()
+        np.testing.assert_array_equal(g["distilled_ray_index"],
+                                      np.arange(0, PRODUCTION_CHUNK,
+                                                RAY_STRIDE))
+        dist = g["distilled"]
+        assert dist.shape == (len(g["distilled_ray_index"]), 64)
+        norms = np.linalg.norm(dist, axis=-1)
+        hit = norms > 0.5
+        assert hit.mean() > 0.2
+        np.testing.assert_allclose(norms[hit], 1.0, atol=1e-5)
+        assert not bool(g["jit"])
+        assert len(str(g["commit"])) == 40
+        assert str(g["command"]) == DISTILLED_COMMAND
+
+
+def test_graft_and_targets_are_deterministic():
+    """graft_distilled and distilled_targets draw the same arrays from the
+    same seed and others from another; the graft keeps r5b's leaves,
+    appends its 64 input rows last on each head's first layer, and leaves
+    its input untouched; the carried optimizer state keeps r5b's moments
+    and step counts, zero for what is new."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.io.checkpoint import load_checkpoint
+    from contrastive_lift_tpu_torch.utils.tree import tree_leaves_with_path
+    arrays, meta = load_checkpoint(R5B_CKPT)
+    before = {p: a.copy() for p, a in tree_leaves_with_path(arrays)}
+    a = dict(tree_leaves_with_path(fid.graft_distilled(arrays, 0)))
+    b = dict(tree_leaves_with_path(fid.graft_distilled(arrays, 0)))
+    c = dict(tree_leaves_with_path(fid.graft_distilled(arrays, 1)))
+    assert set(a) == set(b) == set(c)
+    for path, want in before.items():
+        np.testing.assert_array_equal(dict(tree_leaves_with_path(arrays))[path],
+                                      want)
+    for path in a:
+        np.testing.assert_array_equal(a[path], b[path])
+        if path[0].startswith("feature"):
+            assert not np.array_equal(a[path], c[path]), path
+        elif path in before and a[path].shape == before[path].shape:
+            np.testing.assert_array_equal(a[path], before[path])
+    assert a[("feature", "planes", 0)].shape == (48, 131, 131)
+    assert a[("feature_basis", "w")].shape == (144, 96)
+    assert a[("feature_mlp", "layers", 2, "w")].shape == (256, 64)
+    for head in fid.DISTILLED_HEAD_INPUTS:
+        path = head + ("layers", 0, "w")
+        old = before[path]
+        assert a[path].shape == (old.shape[0] + 64, old.shape[1])
+        np.testing.assert_array_equal(a[path][:old.shape[0]], old)
+        bound = 1 / np.sqrt(old.shape[0] + 64)
+        new = a[path][old.shape[0]:]
+        assert new.std() > bound / 3 and np.abs(new).max() <= bound
+    scenes = [fid.distilled_targets(fid.e2e_scene((8, 12), 4, 18.0), seed)
+              for seed in (0, 0, 1)]
+    for f0, f1, f2 in zip(*(s.train_frames + s.val_frames for s in scenes)):
+        assert f0.feats.shape == (96, 64)
+        np.testing.assert_array_equal(f0.feats, f1.feats)
+        assert not np.array_equal(f0.feats, f2.feats)
+        np.testing.assert_allclose(np.linalg.norm(f0.feats, axis=-1), 1.0,
+                                   atol=1e-5)
+    grafted = fid.graft_distilled(arrays, 0)
+    main, inst = fid.graft_opt_state(fid.distilled_config(), arrays, grafted,
+                                     meta["opt_leaves"])
+    from contrastive_lift_tpu_torch.io.checkpoint import opt_state_leaves
+    leaves = opt_state_leaves(main, inst)
+    # 13 new leaves in the main chain, a mu and a nu each
+    assert len(leaves) == len(meta["opt_leaves"]) + 2 * 13
+    mu = main["main_net"].mu
+    w0 = mu[("semantic_mlp", "layers", 0, "w")].numpy()
+    assert w0.shape == (67, 256)
+    assert not w0[3:].any() and w0[:3].any()
+    assert not mu[("feature_mlp", "layers", 0, "w")].any()
+    # the main chain's first group (main_grid) keeps r5b's step count
+    assert int(main["main_grid"].count) == int(meta["opt_leaves"][0]) > 0
+
+
+# about 60 s on the CPU (the feature branch's factor gradients), and the
+# render check below about 70 s: both beyond the Tier-1 budget
+@pytest.mark.slow
+def test_port_on_cpu_matches_distilled_golden_step(tmp_path):
+    """(a) of distilled_r5b on the CPU: the grafted checkpoint's training
+    step (train/resume.py::golden_step) against the eager JAX golden: the
+    calibrated budget equal, every metric (loss_feat among them) within
+    rtol 2e-3, every leaf's sketches within 4.5e-2."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.train.resume import (DISTILLED_METRICS,
+                                                         check_train_step,
+                                                         golden_step)
+    with np.load(DISTILLED_GOLDEN) as g:
+        gold = {k: g[k] for k in g.files}
+    ckpt = fid.write_distilled_checkpoint(tmp_path / "distilled.npz")
+    scene = fid.distilled_targets(fid.e2e_scene(*R5B_SCENE))
+    res = golden_step(ckpt, fid.distilled_config(), scene, gold, device="cpu")
+    assert res["metrics"]["loss_feat"] > 0
+    assert check_train_step(res, gold, DISTILLED_METRICS) == []
+
+
+@pytest.mark.slow
+def test_port_on_cpu_matches_distilled_golden_render(tmp_path):
+    """(b) and (c) of distilled_r5b on the CPU: the grafted checkpoint's
+    production render with budgets, warnings, maps (3e-2) and PQ^scene
+    (0.5 pt) as in the golden, and its first chunk's distilled map within
+    3e-2 of the golden's."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    ckpt = fid.write_distilled_checkpoint(tmp_path / "distilled.npz")
+    scene = fid.distilled_targets(fid.e2e_scene(*R5B_SCENE))
+    res = fid.run_production(ckpt, scene, device="cpu",
+                             cfg=fid.distilled_render_config(scene.image_dim))
+    dist = fid.distilled_chunk(ckpt, scene, device="cpu").numpy()
+    with np.load(DISTILLED_GOLDEN) as g:
+        for field in BUDGET_FIELDS:
+            assert getattr(res["rcfg"], field) == g[f"budget_{field}"].item()
+        assert [guardrail(m) for m in res["warnings"]] == [
+            guardrail(str(m)) for m in g["warnings"]]
+        for key in MAP_KEYS:
+            got = np.concatenate([f[key] for f in res["maps"]])[g["ray_index"]]
+            np.testing.assert_allclose(got, g[key], atol=3e-2, rtol=0,
+                                       err_msg=key)
+        for key in ("pq_scene", "pq_masked"):
+            assert abs(res[key] - float(g[key])) <= 0.005
+        np.testing.assert_allclose(dist[g["distilled_ray_index"]],
+                                   g["distilled"], atol=3e-2, rtol=0)
+
+
 @pytest.mark.slow
 def test_golden_regenerates(tmp_path):
     """write_golden() reproduces the committed file: maps within 1e-4 (CPU
@@ -1301,7 +1551,10 @@ def test_options_golden_regenerates(tmp_path):
 
 
 if __name__ == "__main__":
-    if sys.argv[1:] == ["options"]:
+    if sys.argv[1:] == ["distilled"]:
+        rec = write_distilled_golden()
+        print({k: v for k, v in rec.items() if np.size(v) < 60})
+    elif sys.argv[1:] == ["options"]:
         write_options_golden()
     elif sys.argv[1:] == ["tools"]:
         rec = write_tools_golden()

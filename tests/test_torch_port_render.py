@@ -250,10 +250,11 @@ def test_unported_options_raise(tmp_path):
     gathers, baked heads), each rendering as the JAX package's render_frames
     does (maps at fp32 summation-order tolerance, 3e-2 with baked heads); on
     the dense path head selection has nothing to select and renders as
-    "sort". What the port still lacks raises NotImplementedError naming it:
-    the distilled-feature heads. Span gathers on the dense path, which has
-    no spans, raise ValueError (the JAX package raises TypeError there; a
-    mesh renders: tests/test_torch_port_parallel.py)."""
+    "sort". The distilled-feature heads, which the port refused until slice
+    4a, render and feed the aux passes as the JAX package's. Span gathers
+    on the dense path, which has no spans, raise ValueError (the JAX package
+    raises TypeError there; a mesh renders:
+    tests/test_torch_port_parallel.py)."""
     ckpt = _checkpoint(tmp_path / "field.npz", {})
     cfg = _cfg(TConfig)
     p, m, r, s, _ = trender.load_model_for_inference(ckpt, cfg, 2,
@@ -301,17 +302,29 @@ def test_unported_options_raise(tmp_path):
     train = tR.render_rays(p, m, dense, s, rays, torch.Generator(),
                            is_train=True)
     assert torch.isfinite(train["rgb"]).all()
-    distilled = dataclasses.replace(m, use_distilled_features_semantic=True)
-    with pytest.raises(NotImplementedError, match="distilled"):
-        tR.render_rays(p, distilled, dense, s, rays)
-    # the aux passes select their top-k heads in every mode, as JAX's
+    dkw = dict(use_distilled_features_semantic=True)
+    dckpt = _checkpoint(tmp_path / "distilled.npz", dkw)
+    dp, dm, dr, ds, _ = trender.load_model_for_inference(
+        dckpt, _cfg(TConfig, **dkw), 2, device="cpu")
+    jdp, jdm, jdr, jds, _ = jrender.load_model_for_inference(
+        dckpt, _cfg(JConfig, **dkw), 2)
     jrender_mod = jrender.R
+    got = tR.render_rays(dp, dm, _dense(dr), ds, rays)
+    want = jrender_mod.render_rays(jdp, jdm, _dense(jdr), jds,
+                                   jnp.asarray(rays.numpy()))
+    for key in MAP_KEYS + ("distilled",):
+        np.testing.assert_allclose(got[key].numpy(), np.asarray(want[key]),
+                                   atol=2e-5, rtol=1e-4, err_msg=key)
+    # the aux passes select their top-k heads in every mode, as JAX's
     for fn, jfn in ((tR.render_instance_features,
                      jrender_mod.render_instance_features),
                     (tR.render_segment_features,
                      jrender_mod.render_segment_features)):
-        with pytest.raises(NotImplementedError, match="distilled"):
-            fn(p, distilled, dense, s, rays)
+        np.testing.assert_allclose(
+            fn(dp, dm, _dense(dr), ds, rays)[0].detach().numpy(),
+            np.asarray(jfn(jdp, jdm, _dense(jdr), jds,
+                           jnp.asarray(rays.numpy()))[0]),
+            atol=2e-5, rtol=1e-4, err_msg="distilled")
         for mode in ("rank", "iter"):
             rc = dict(head_topk=4, head_select=mode)
             got = fn(p, m, dataclasses.replace(dense, **rc), s, rays)
