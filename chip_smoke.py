@@ -229,7 +229,32 @@ Phases, each printing JSON lines with their seconds:
              the warm steps/s and peak memory beside train_r5b's, the warm
              render rays/s beside main_production's and the phase's kernel
              launches, with the card's name and power limit;
-15. profile - only with ``--profile``: one more warm render of the 4 val
+15. preprocess_scannet - the paper's pipeline from raw data on: (a) a raw
+             ScanNet capture at ScanNet's own sizes
+             (``inference/fidelity.py::write_raw_scannet``: a version-4
+             ``.sens`` of 12 frames of 968x1296 colour, JPEG at quality 90
+             through the port's encoder, 480x640 zlib depth; uint16 labels
+             with raw ids past 255; Mask2Former dumps) under the gitignored
+             ``runs/``, the ``.sens`` sha256 equal to the golden's (PIL
+             encoded the golden's, so the encoder is checked byte for byte);
+             (b) ``data/preprocessing/scannet.py::preprocess_scannet`` (every
+             frame streamed and decoded, keyframe window 2: 6 frames, split
+             4 / 2, 480x640, the dumps converted) with every file of the
+             tree at its digest in ``contrastive_lift_tpu_torch/testdata/
+             scannet_preprocess_golden.npz`` (written by the JAX package with
+             PIL: JPEG, txt and json bytes, PNG headers and pixels, npz
+             arrays, pickled objects); (c) the port's PanopLi reader on the
+             tree at 480x640, its arrays equal and its rays within 1e-6 of
+             the golden's record of the JAX reader; (d) ``Trainer.fit`` at
+             r5b's widths on the scene read at 60x80, 2 epochs (the cuts in
+             ``fidelity.PREPROCESS_OVERRIDES``), then ``render_frames`` of
+             the 2 test frames at 480x640 (614,400 rays, launch counts zeroed
+             just before and read just after): finite losses and maps and a
+             float32 launch of the fused density kernel. Prints the encode
+             and decode seconds of one 968x1296 frame, the preprocessing,
+             reader and fit seconds, the warm steps/s, the render rays/s and
+             the launches, with the card's name and power limit;
+16. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
@@ -243,8 +268,8 @@ Then one line ``{"kernels": [...]}`` (each entry point and row type, timed
 on the render-chunk inputs, the fused form also on the production chunk,
 the loop chunk and the CLI chunk, with its launches in main_production, in
 each option of options_r5b, in train_loop_r5b's render, in cli_r5b, in
-tools_r5b, summed over the ranks in ddp_r5b, and in distilled_r5b's
-render; the span form timed on
+tools_r5b, summed over the ranks in ddp_r5b, in distilled_r5b's render
+and in preprocess_scannet's render; the span form timed on
 the span chunk with its launches in the span render) and, last, ``{"ok": true, "device": {...}}``.
 Any failed check raises and the script exits non-zero; without a CUDA
 device, or without the rest of the repository beside it, it exits non-zero
@@ -266,6 +291,7 @@ CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
 TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
 OPTIONS_GOLDEN = GOLDEN.with_name("r5b_options_golden.npz")
 DISTILLED_GOLDEN = GOLDEN.with_name("r5b_distilled_golden.npz")
+PREPROCESS_GOLDEN = GOLDEN.with_name("scannet_preprocess_golden.npz")
 # warm steps of train_r5b after step 1, and the sampler seed of those
 TRAIN_STEPS = 10
 DISTILLED_STEPS = 3
@@ -2060,6 +2086,114 @@ def phase_distilled_r5b(train_warm_steps_per_second: float,
     return launches
 
 
+def phase_preprocess_scannet():
+    """A raw ScanNet capture through the port's preprocessing, reader,
+    training and render, held to the JAX package's golden (see the module
+    docstring). Returns the density-kernel launches of the render."""
+    import hashlib
+    import tempfile
+
+    import numpy as np
+    import torch
+    from contrastive_lift_tpu_torch.data.preprocessing.sens_reader import (
+        iter_frames)
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    from contrastive_lift_tpu_torch.ops import brick_interp as bi
+    from contrastive_lift_tpu_torch.utils.jpeg import decode_jpeg, encode_jpeg
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    card = card_line()
+    t_phase = time.perf_counter()
+    with np.load(PREPROCESS_GOLDEN) as g:
+        gold = {k: g[k] for k in g.files}
+    bad = []
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+        tmp = Path(tmp)
+        # (a) the raw capture, its .sens byte for byte the golden's
+        t0 = time.perf_counter()
+        raw = fid.write_raw_scannet(tmp / "raw")
+        write_s = time.perf_counter() - t0
+        sha = hashlib.sha256(raw["sens"].read_bytes()).hexdigest()
+        if sha != str(gold["sens_sha256"]):
+            raise AssertionError(f"preprocess_scannet: .sens sha256 {sha}, "
+                                 f"the golden's {gold['sens_sha256']}")
+        _, _, frame = next(iter_frames(raw["sens"]))
+        t0 = time.perf_counter()
+        rgb = decode_jpeg(frame.color_bytes)
+        decode_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        encode_jpeg(rgb, fid.SCANNET_QUALITY)
+        encode_s = time.perf_counter() - t0
+        # (b) the preprocessing, (c) the reader: every file and array at
+        # the golden
+        pre = fid.run_preprocess(raw, tmp / "tree")
+        t0 = time.perf_counter()
+        scene = fid.load_preprocessed(tmp / "tree")
+        reader_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        checked = fid.check_preprocess(tmp / "tree", gold, scene=scene)
+        check_s = time.perf_counter() - t0
+        # (d) training at r5b's widths, then the render at 480x640
+        torch.cuda.reset_peak_memory_stats()
+        fit = fid.train_preprocessed(tmp / "tree", tmp / "run")
+        losses = [r for r in fit["records"] if "loss_main" in r]
+        if not losses or not all(np.isfinite(v) for r in fit["records"]
+                                 for v in r.values()
+                                 if isinstance(v, float)):
+            bad.append(f"non-finite or missing training metrics "
+                       f"{fit['records'][-2:]}")
+        opened = {k for r in losses for k in r}
+        if not {"loss_clustering", "loss_segment"} <= opened:
+            bad.append(f"the instance and segment losses never ran: "
+                       f"{sorted(opened)}")
+        bi.reset_launches()
+        out = fid.render_preprocessed(fit["last"], fit["cfg"], scene)
+        launches = launch_counts()
+        peak = torch.cuda.max_memory_allocated()
+        for m in out["maps"]:
+            bad.extend(f"render map {k} is not finite"
+                       for k, v in m.items() if not np.isfinite(v).all())
+        shapes = {k: v.shape for k, v in out["maps"][0].items()}
+    rays_per_s = out["rays"] / out["render_seconds"]
+    k1 = launches["sample_density_brick"].get("float32", 0)
+    if k1 < 1:
+        bad.append("the render never launched the float32 "
+                   "sample_density_brick kernel")
+    emit({"phase": "preprocess_scannet", "card": card,
+          "sens_sha256": sha, "raw_frames": fid.SCANNET_FRAMES,
+          "color_hw": fid.SCANNET_COLOR_HW, "image_hw": fid.SCANNET_IMAGE_HW,
+          "write_raw_seconds": write_s,
+          "encode_seconds_per_frame": encode_s,
+          "decode_seconds_per_frame": decode_s,
+          "preprocess_seconds": pre["seconds"], "frames": pre["frames"],
+          "reader_seconds": reader_s, "check_seconds": check_s, **checked,
+          "train_cuts": {"image_dim": fid.PREPROCESS_TRAIN_HW,
+                         **fid.PREPROCESS_OVERRIDES},
+          "fit_seconds": fit["fit_seconds"], "steps": fit["steps"],
+          "fit_parts_seconds": {k: sum(s for _, s in v) for k, v in
+                                fit["trainer"].seconds.items()},
+          "step_seconds": [s for _, s in fit["trainer"].seconds["step"]],
+          "warm_steps_per_second": fit["warm_steps_per_second"],
+          "last_losses": {k: v for k, v in losses[-1].items()
+                          if k.startswith("loss")} if losses else None,
+          "render_rays": out["rays"], "render_seconds": out["render_seconds"],
+          "rays_per_second": rays_per_s, "map_shapes": shapes,
+          "max_memory_allocated_bytes": peak, "launches": launches,
+          "failures": bad, "seconds": time.perf_counter() - t_phase})
+    print(f"preprocess_scannet: 968x1296 frame encode {encode_s:.3f} s, "
+          f"decode {decode_s:.3f} s; preprocess {pre['seconds']:.1f} s, "
+          f"reader {reader_s:.1f} s, fit {fit['fit_seconds']:.1f} s at "
+          f"{fit['warm_steps_per_second']:.2f} warm steps/s, render "
+          f"{rays_per_s:.0f} rays/s, fused float32 launches {k1} on {card}",
+          flush=True)
+    if bad:
+        raise AssertionError(f"preprocess_scannet: {bad[:10]}")
+    return launches
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
     on the render-chunk inputs (the dense main path's own) and its launches
@@ -2068,7 +2202,8 @@ def kernel_line(records, launches):
     with its time and error on the loop chunk and its launches in
     ``train_loop_r5b``'s render, and on the CLI chunk with its launches in
     ``cli_r5b``; every entry with its launches in ``tools_r5b``, summed
-    over the ranks in ``ddp_r5b``, and in ``distilled_r5b``'s render."""
+    over the ranks in ``ddp_r5b``, in ``distilled_r5b``'s render and in
+    ``preprocess_scannet``'s render."""
     entries = []
     for kname in ("brick_interp", "sample_density_brick"):
         for dtype in DTYPES:
@@ -2103,6 +2238,8 @@ def kernel_line(records, launches):
                                             for rank in launches["ddp"])
             entry["distilled_r5b_launches"] = launches["distilled"][kname] \
                 .get(dtype, 0)
+            entry["preprocess_scannet_launches"] = launches["preprocess"][
+                kname].get(dtype, 0)
             loop = records.get((kname, "loop_chunk", dtype))
             if loop is not None:
                 entry.update(loop_chunk_ms=loop["ms"],
@@ -2136,6 +2273,8 @@ def kernel_line(records, launches):
                 name: counts[kname].get(dtype, 0)
                 for name, counts in launches["options"].items()},
             "distilled_r5b_launches": launches["distilled"][kname]
+            .get(dtype, 0),
+            "preprocess_scannet_launches": launches["preprocess"][kname]
             .get(dtype, 0)})
     return {"kernels": entries}
 
@@ -2159,7 +2298,7 @@ def main() -> int:
         return 2
     for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN, STAGE_GOLDEN,
                    CLI_GOLDEN, TOOLS_GOLDEN, OPTIONS_GOLDEN, DISTILLED_GOLDEN,
-                   ROOT / KERNEL_SOURCE):
+                   PREPROCESS_GOLDEN, ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
                   "the repository", file=sys.stderr)
@@ -2184,6 +2323,7 @@ def main() -> int:
     launches["ddp"] = phase_ddp_r5b()
     launches["distilled"] = phase_distilled_r5b(
         train_warm, train_peak, production_warm_rays_per_second)
+    launches["preprocess"] = phase_preprocess_scannet()
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

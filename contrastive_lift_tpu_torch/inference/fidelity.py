@@ -21,6 +21,13 @@ a user's run: the scene in the MOS layout (PNG colour, npy labels,
 ``metadata.json`` cameras), and a run directory whose ``config.json`` is
 r5b's with the scene as its dataset. ``cli_chunk`` gives the density
 kernel's inputs for the first chunk of that CLI render.
+
+``write_raw_scannet`` writes a raw ScanNet capture at ScanNet's own sizes
+from a seed, ``run_preprocess`` runs the port's ``preprocess_scannet`` on
+it, ``check_preprocess`` holds the tree and the port's reader to the
+golden's digests (``file_digest``, ``reader_record``), and
+``train_preprocessed`` and ``render_preprocessed`` train and render on
+the result, as a user would after preprocessing.
 """
 from __future__ import annotations
 
@@ -36,7 +43,7 @@ import numpy as np
 import torch
 
 from ..config import Config, load_config
-from ..data.synthetic import make_synthetic_scene
+from ..data.synthetic import _look_at, make_synthetic_scene
 from ..metrics.panoptic_quality import panoptic_quality
 from ..ops.fused_grid import build_dense_density
 from ..renderer import render as R
@@ -1316,3 +1323,351 @@ def distilled_chunk(ckpt, scene, device="cuda",
         return R.render_rays(params, mcfg, rcfg, state_r,
                              torch.from_numpy(rays).to(dev),
                              fused=fused)["distilled"]
+
+
+# ---------------------------------------------------------------------------
+# preprocess_scannet: a raw ScanNet capture at ScanNet's own sizes, through
+# data/preprocessing/scannet.py into the layout the PanopLi reader reads
+# ---------------------------------------------------------------------------
+
+SCANNET_SEED = 0
+SCANNET_FRAMES = 12
+SCANNET_COLOR_HW = (968, 1296)
+SCANNET_DEPTH_HW = (480, 640)
+SCANNET_QUALITY = 90
+SCANNET_IMAGE_HW = (480, 640)
+# every frame streamed (frame_skip 1), the sharper of each pair kept: 6 of
+# 12 frames, split 4 / 2 at the script's test fraction 0.2
+SCANNET_KEYFRAME_WINDOW = 2
+# ScanNet's colour and depth intrinsics (fx, fy, cx, cy)
+SCANNET_COLOR_K = (1170.187988, 1170.187988, 647.75, 483.75)
+SCANNET_DEPTH_K = (571.623718, 571.623718, 319.5, 239.5)
+# raw ScanNet label ids (two above 255) -> the script's reduced classes
+SCANNET_RAW_TO_REDUCED = {1: 1, 2: 2, 22: 3, 5: 4, 7: 5, 6: 6, 157: 7, 3: 8,
+                          300: 9, 1163: 15}
+# the label layout: a grid of cells, each one object, that slides with the
+# camera; segment 0 (no prediction) on a band of the panoptic dumps
+SCANNET_CELLS = (6, 8)
+SCANNET_CLASSES = 21
+# rays of each frame the golden keeps for the reader's check
+SCANNET_RAY_STRIDE = 509
+SCANNET_RAY_TOL = 1e-6
+READER_FIELDS = ("rgbs", "semantics", "instances", "probabilities",
+                 "confidences", "mask", "gt_semantics", "gt_instances",
+                 "segments", "intrinsics", "depth")
+
+
+def _cells(hw, frame: int):
+    """The cell index of each pixel of an ``hw`` image of frame ``frame``
+    (the grid slides 1/64 of the width a frame)."""
+    h, w = hw
+    rows, cols = SCANNET_CELLS
+    y = np.arange(h)[:, None] * rows // h
+    x = ((np.arange(w)[None, :] + frame * w // 64) * cols // w) % cols
+    return (y * cols + x).astype(np.int64)
+
+
+def _intrinsic4(k) -> np.ndarray:
+    m = np.eye(4, dtype=np.float32)
+    m[0, 0], m[1, 1], m[0, 2], m[1, 2] = k
+    return m
+
+
+def write_raw_scannet(root, seed: int = SCANNET_SEED,
+                      n_frames: int = SCANNET_FRAMES, encode=None) -> dict:
+    """A raw ScanNet scene under ``root``, made with numpy from ``seed``:
+    ``scene.sens`` (version 4, ``n_frames`` frames of 968x1296 colour as
+    JPEG at quality 90 through ``encode(image, quality)``, default the
+    port's ``encode_jpeg``, and 480x640 depth as ``zlib_ushort``, shift
+    1000), ``labels/<idx>_sem.png`` and ``<idx>_inst.png`` (uint16 raw ids
+    at 968x1296, some above 255), ``label_mapping.json`` (raw -> reduced)
+    and Mask2Former-style dumps ``panoptic/<idx>.npz`` at 480x640. The
+    colour is a smooth texture with noise whose strength differs from frame
+    to frame, so keyframe selection does not tie. Returns the paths."""
+    import zlib
+
+    from ..data.preprocessing.scannet import reduced_class_names
+    from ..data.preprocessing.sens_reader import (SensFrame, SensHeader,
+                                                  write_sens)
+    from ..utils.jpeg import encode_jpeg
+
+    encode = encode or encode_jpeg
+    root = Path(root)
+    (root / "labels").mkdir(parents=True, exist_ok=True)
+    (root / "panoptic").mkdir(exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_cells = SCANNET_CELLS[0] * SCANNET_CELLS[1]
+    raw_ids = np.array(sorted(SCANNET_RAW_TO_REDUCED))
+    cell_raw = raw_ids[rng.integers(0, len(raw_ids), n_cells)]
+    cell_inst = np.arange(1, n_cells + 1) + np.where(
+        np.arange(n_cells) % 2, 250, 0)
+    cell_tint = rng.uniform(-40, 40, (n_cells, 3)).astype(np.float32)
+    seg_probs = rng.dirichlet(np.ones(SCANNET_CLASSES),
+                              n_cells + 1).astype(np.float32)
+    seg_conf = rng.uniform(0.5, 1.0, (2, n_cells + 1)).astype(np.float32)
+    names = reduced_class_names()
+    h, w = SCANNET_COLOR_HW
+    dh, dw = SCANNET_DEPTH_HW
+    yy, xx = np.mgrid[0:h, 0:w].astype(np.float32)
+    dyy, dxx = np.mgrid[0:dh, 0:dw].astype(np.float32)
+    phase = np.array([0.0, 2.1, 4.2], np.float32)
+    frames = []
+    for i in range(n_frames):
+        cells = _cells((h, w), i)
+        texture = (128 + 60 * np.sin(xx[..., None] / 41 + i * 0.3 + phase)
+                   * np.cos(yy[..., None] / 57 + phase / 2))
+        noise = rng.normal(0, 2 + 3 * ((i * 5) % 12), (h, w, 3))
+        rgb = np.clip(texture + cell_tint[cells] + noise, 0, 255).astype(
+            np.uint8)
+        depth = (1500 + 400 * np.sin(dxx / 90 + i * 0.2)
+                 * np.cos(dyy / 70)).astype(np.uint16)
+        angle = 0.15 * i
+        pose = _look_at(np.array([2 * np.cos(angle), 2 * np.sin(angle),
+                                  1.2]), np.zeros(3))
+        frames.append(SensFrame(pose, i * 33333,
+                                i * 33333, encode(rgb, SCANNET_QUALITY),
+                                zlib.compress(depth.tobytes())))
+        write_png(root / "labels" / f"{i}_sem.png",
+                  cell_raw[cells].astype(np.uint16))
+        write_png(root / "labels" / f"{i}_inst.png",
+                  cell_inst[cells].astype(np.uint16))
+        # the panoptic dump at the processed size: segment ids 1.. per
+        # cell, 0 on a band without prediction; the no-TTA mask merges
+        # neighbouring cells
+        seg = _cells(SCANNET_IMAGE_HW, i) + 1
+        seg[:, :dw // 40] = 0
+        seg_nt = np.where(seg > 0, (seg + 1) // 2 * 2 - 1, 0)
+        segments = [{"id": int(s), "category_id": int(SCANNET_RAW_TO_REDUCED[
+            int(cell_raw[s - 1])]), "category_name": names[
+            SCANNET_RAW_TO_REDUCED[int(cell_raw[s - 1])]]}
+            for s in range(1, n_cells + 1)]
+        segments_nt = [s for s in segments if s["id"] % 2]
+        np.savez(root / "panoptic" / f"{i}.npz", mask=seg.astype(np.int32),
+                 mask_notta=seg_nt.astype(np.int32),
+                 segments=json.dumps(segments),
+                 segments_notta=json.dumps(segments_nt),
+                 probabilities=seg_probs[seg], confidences=seg_conf[0][seg],
+                 confidences_notta=seg_conf[1][seg_nt])
+    header = SensHeader("StructureSensor", _intrinsic4(SCANNET_COLOR_K),
+                        np.eye(4, dtype=np.float32),
+                        _intrinsic4(SCANNET_DEPTH_K),
+                        np.eye(4, dtype=np.float32), "jpeg", "zlib_ushort",
+                        w, h, dw, dh, 1000.0, n_frames)
+    sens = write_sens(root / "scene.sens", header, frames)
+    mapping = root / "label_mapping.json"
+    mapping.write_text(json.dumps({str(k): v for k, v in
+                                   SCANNET_RAW_TO_REDUCED.items()}))
+    return {"sens": sens, "labels": root / "labels", "mapping": mapping,
+            "panoptic": root / "panoptic"}
+
+
+def preprocess_kwargs(raw: dict, out, keyframe_window: int =
+                      SCANNET_KEYFRAME_WINDOW) -> dict:
+    """The keyword arguments of ``preprocess_scannet`` (either package's)
+    for the raw scene ``raw`` (``write_raw_scannet``'s paths) into
+    ``out``."""
+    return dict(sens_path=raw["sens"], output_dir=out,
+                label_dir=raw["labels"], label_mapping=raw["mapping"],
+                frame_skip=1, keyframe_window=keyframe_window,
+                image_hw=SCANNET_IMAGE_HW, panoptic_dir=raw["panoptic"])
+
+
+def run_preprocess(raw: dict, out, keyframe_window: int =
+                   SCANNET_KEYFRAME_WINDOW) -> dict:
+    """The port's ``preprocess_scannet`` of ``raw`` into ``out``; returns
+    its summary and seconds."""
+    from ..data.preprocessing.scannet import preprocess_scannet
+
+    t0 = time.perf_counter()
+    summary = preprocess_scannet(**preprocess_kwargs(raw, out,
+                                                     keyframe_window))
+    return {**summary, "seconds": time.perf_counter() - t0}
+
+
+def _sha(data) -> str:
+    import hashlib
+    return hashlib.sha256(data).hexdigest()
+
+
+def array_digest(a) -> str:
+    """sha256 of an array's shape and values, integers and booleans as
+    int64 and floats as float64 (so that two readers' dtypes do not
+    matter, only their values)."""
+    a = np.asarray(a)
+    kind = np.float64 if a.dtype.kind == "f" else np.int64
+    return _sha(repr(a.shape).encode() + np.ascontiguousarray(
+        a.astype(kind)).tobytes())
+
+
+def _canonical(obj):
+    """A repr-able form of an unpickled object that keeps its types: the
+    digest of ``segmentation_data.pkl`` tells int from numpy int."""
+    if isinstance(obj, dict):
+        return ("dict", sorted((repr(_canonical(k)), _canonical(v))
+                               for k, v in obj.items()))
+    if isinstance(obj, (list, tuple)):
+        return (type(obj).__name__, [_canonical(v) for v in obj])
+    if isinstance(obj, np.ndarray):
+        return ("ndarray", obj.dtype.str, obj.shape, _sha(
+            np.ascontiguousarray(obj).tobytes()))
+    return (type(obj).__name__, repr(obj))
+
+
+def file_digest(path, png_pixels=None) -> str:
+    """The digest a file of the preprocessed tree is held to: a PNG's
+    header (size, bit depth, colour type) and pixels (``png_pixels(data)``,
+    default the port's ``decode_png``), an npz's arrays, a pickle's loaded
+    objects, and any other file's bytes (JPEG, txt, json)."""
+    import io
+    import pickle
+    import struct
+
+    from ..utils.png import decode_png
+
+    path = Path(path)
+    data = path.read_bytes()
+    if path.suffix == ".png":
+        w, h, depth, colour = struct.unpack(">IIBB", data[16:26])
+        px = np.asarray((png_pixels or decode_png)(data))
+        return (f"png:{w}x{h}:{depth}:{colour}:{px.dtype.str}:"
+                + _sha(repr(px.shape).encode() + px.tobytes()))
+    if path.suffix == ".npz":
+        with np.load(io.BytesIO(data)) as z:
+            parts = [(k, z[k].dtype.str, z[k].shape, _sha(z[k].tobytes()))
+                     for k in sorted(z.files)]
+        return "npz:" + _sha(repr(parts).encode())
+    if path.suffix == ".pkl":
+        return "pkl:" + _sha(repr(_canonical(pickle.loads(data))).encode())
+    return "bytes:" + _sha(data)
+
+
+def tree_digests(root, png_pixels=None) -> dict:
+    """{path relative to ``root``: ``file_digest``} of every file."""
+    root = Path(root)
+    return {p.relative_to(root).as_posix(): file_digest(p, png_pixels)
+            for p in sorted(root.rglob("*")) if p.is_file()}
+
+
+def reader_record(scene) -> dict:
+    """What the golden keeps of a scene read from the preprocessed tree:
+    each frame's name and ``READER_FIELDS`` digests (train frames, then
+    val), every ``SCANNET_RAY_STRIDE``-th ray, and the segmentation
+    bookkeeping's digest."""
+    frames = scene.train_frames + scene.val_frames
+    seg = scene.segmentation
+    return {
+        "names": np.array([f.name for f in frames]),
+        "splits": np.array([len(scene.train_frames), len(scene.val_frames)]),
+        "digests": np.array([[array_digest(getattr(f, k)) if getattr(
+            f, k) is not None else "none" for k in READER_FIELDS]
+            for f in frames]),
+        "rays": np.stack([f.rays[::SCANNET_RAY_STRIDE].astype(np.float32)
+                          for f in frames]),
+        "segmentation": np.array(_sha(repr(_canonical(
+            (sorted(seg.fg_classes), sorted(seg.bg_classes),
+             int(seg.num_semantic_classes),
+             {int(k): int(v) for k, v in seg.instance_to_semantics.items()},
+             int(seg.num_instances)))).encode()))}
+
+
+def load_preprocessed(tree, image_hw=SCANNET_IMAGE_HW):
+    """The port's ``load_scene`` of the preprocessed tree (dataset_class
+    panopli at ``image_hw``)."""
+    from ..data import load_scene
+    return load_scene(Config(dataset_class="panopli", dataset_root=str(tree),
+                             image_dim=tuple(image_hw)))
+
+
+def check_preprocess(tree, golden, prefix: str = "", scene=None) -> dict:
+    """Hold the preprocessed ``tree`` (and the scene the port's reader
+    loads from it, ``scene``, when given) to ``golden``'s ``prefix``
+    record: the file list equal, every file at its digest (JPEGs, txt and
+    json bytes equal; PNG headers and pixels equal; npz arrays equal;
+    pickles' objects equal), the reader's arrays equal and its rays within
+    ``SCANNET_RAY_TOL``. Raises AssertionError naming what differs;
+    returns the counts checked."""
+    want = dict(zip(golden[prefix + "files"].tolist(),
+                    golden[prefix + "digests"].tolist()))
+    got = tree_digests(tree)
+    if sorted(got) != sorted(want):
+        raise AssertionError(
+            f"preprocessed files differ: extra {sorted(set(got) - set(want))}"
+            f", missing {sorted(set(want) - set(got))}")
+    bad = [k for k in want if got[k] != want[k]]
+    if bad:
+        raise AssertionError(f"{len(bad)} preprocessed files differ from the "
+                             f"golden's: {bad[:10]}")
+    out = {"files": len(got)}
+    if scene is None:
+        return out
+    rec = reader_record(scene)
+    for key in ("names", "splits", "segmentation"):
+        if not np.array_equal(rec[key], golden[prefix + "reader_" + key]):
+            raise AssertionError(f"reader {key}: {rec[key]} vs "
+                                 f"{golden[prefix + 'reader_' + key]}")
+    diff = rec["digests"] != golden[prefix + "reader_digests"]
+    if diff.any():
+        where = [(str(rec["names"][i]), READER_FIELDS[j])
+                 for i, j in zip(*np.nonzero(diff))]
+        raise AssertionError(f"reader arrays differ: {where[:10]}")
+    ray_err = float(np.abs(rec["rays"] - golden[prefix + "reader_rays"]).max())
+    if not ray_err <= SCANNET_RAY_TOL:
+        raise AssertionError(f"reader rays {ray_err} from the golden's")
+    return {**out, "frames": len(rec["names"]), "ray_max_abs_err": ray_err}
+
+
+# the training cut of preprocess_scannet: r5b's configuration and widths on
+# the preprocessed scene read at 60x80 (9 steps an epoch of its 4 train
+# frames), 2 epochs with the instance and segment phases open in the second
+PREPROCESS_TRAIN_HW = (60, 80)
+PREPROCESS_OVERRIDES = {"max_epoch": 2, "instance_optimization_epoch": 1,
+                        "segment_optimization_epoch": 1, "sanity_steps": 1,
+                        "val_check_percent": 1.0}
+
+
+def train_preprocessed(tree, run_dir, overrides=None, device="cuda",
+                       train_hw=PREPROCESS_TRAIN_HW) -> dict:
+    """``Trainer.fit`` of r5b's configuration with ``overrides``
+    (default ``PREPROCESS_OVERRIDES``) on the preprocessed ``tree`` read at
+    ``train_hw``. Returns the config, the trainer, its metric records, the
+    fit seconds, the warm steps/s (the first step of each epoch left out)
+    and the path of ``last.npz``."""
+    from ..data import load_scene
+    from ..train.loop import Trainer
+
+    cfg = load_config(R5B_CONFIG, {
+        "dataset_class": "panopli", "dataset_root": str(tree),
+        "image_dim": list(train_hw),
+        **(PREPROCESS_OVERRIDES if overrides is None else overrides)}
+    ).resolve_epochs()
+    scene = load_scene(cfg)
+    run_dir = Path(run_dir)
+    t0 = time.perf_counter()
+    trainer = Trainer(cfg, scene, run_dir, log_every=1, device=device)
+    trainer.fit()
+    fit_seconds = time.perf_counter() - t0
+    records = [json.loads(line) for line in
+               (run_dir / "metrics.jsonl").read_text().splitlines()]
+    steps = trainer.seconds["step"]
+    warm = [s for i, (e, s) in enumerate(steps) if i and steps[i - 1][0] == e]
+    return {"cfg": cfg, "trainer": trainer, "records": records,
+            "fit_seconds": fit_seconds, "steps": len(steps),
+            "warm_steps_per_second": len(warm) / sum(warm) if warm else None,
+            "last": run_dir / "checkpoints" / "last.npz"}
+
+
+def render_preprocessed(ckpt, cfg, scene, device="cuda",
+                        chunk: int = PRODUCTION_CHUNK) -> dict:
+    """``render_frames`` (its defaults) of ``scene``'s val frames from the
+    checkpoint ``ckpt`` trained with ``cfg``, in chunks of ``chunk`` rays;
+    the maps and the render seconds (host clock)."""
+    dev = resolve_device(device)
+    params, mcfg, rcfg, state_r, _ = load_model_for_inference(
+        ckpt, cfg, scene.num_semantic_classes, device=dev)
+    t0 = time.perf_counter()
+    maps = render_frames(params, mcfg, rcfg, state_r, scene.val_frames,
+                         chunk=chunk, device=dev)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return {"maps": maps, "render_seconds": time.perf_counter() - t0,
+            "rays": sum(len(f.rays) for f in scene.val_frames)}

@@ -36,6 +36,7 @@ from ..inference.render import load_model_for_inference, render_frames_report
 from ..renderer import render as R
 from ..train.loop import Trainer
 from ..train.step import StepDraws
+from ..utils.device import resolve_device
 from ..utils.tree import path_str, tree_leaves_with_path
 from . import launch
 from . import mesh as pmesh
@@ -83,7 +84,7 @@ TRAINER_SCENE = dict(num_spheres=3, num_train=8, num_val=1,
                      image_dim=(16, 16), seed=0)
 METRIC_RTOL, METRIC_ATOL = 2e-3, 1e-5
 
-def trainer_steps(cfg_kw: dict, scene_kw: dict, run_dir, device="cpu",
+def trainer_steps(cfg_kw: dict, scene_kw: dict, run_dir, device="cuda",
                   params=None, draws=None, steps: int = 3) -> dict:
     """A ``Trainer`` of ``Config(**cfg_kw)`` on ``make_synthetic_scene(
     **scene_kw)``: ``on_epoch_start(0)``, then ``steps`` steps on batches
@@ -178,14 +179,16 @@ def _dryrun(n: int, device, run_dir) -> dict:
             "param_digests": replica_digests(mesh, trainer.state.params)}
 
 
-def dryrun_multichip(n_devices: int, device="cpu",
+def dryrun_multichip(n_devices: int, device="cuda",
                      timeout: Optional[float] = None,
                      store_dir=None) -> dict:
     """The production ``Trainer`` over ``n_devices`` ranks for one tiny
     epoch with a sharded sanity validation, one more epoch, a sharded
     validation, and ``render_frames(mesh=)`` of the val frames against one
     rank's unsharded render; rank 0's summary. Raises when a metric is not
-    finite or a worker fails."""
+    finite or a worker fails, and before any rank starts when ``device``
+    is a card this host lacks."""
+    resolve_device(device)
     with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
         res = launch.spawn(_dryrun, n_devices, (n_devices, str(device), tmp),
                            timeout=timeout, store_dir=store_dir)

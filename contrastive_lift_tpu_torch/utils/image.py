@@ -15,15 +15,24 @@ panopli.py:41-57`` and ``data/mos.py``:
   does);
 - ``resize_bilinear_chw``: ``jax.image.resize(method="bilinear")`` of
   [..., h, w] float arrays, antialiased when it downscales, as one
-  separable weight matrix per axis in torch with float32 accumulation.
+  separable weight matrix per axis in torch with float32 accumulation;
+- ``to_grey_pil``: PIL's ``convert("L")`` (ITU-R 601-2 luma in 16-bit
+  fixed point);
+- ``read_image``: ``np.asarray(Image.open(path))`` for the PNG and JPEG
+  files the preprocessing scripts open, and ``image_palette``: the colours
+  of a palette PNG's indices.
 """
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from pathlib import Path
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .jpeg import decode_jpeg, jpeg_size
+from .png import decode_png, png_palette
 
 # Resample.c: 32 bits - 8 bits of sample - 2 bits of headroom
 PRECISION_BITS = 32 - 8 - 2
@@ -116,8 +125,8 @@ def _muldiv255(a, b):
 
 
 def resize_lanczos_uint8(arr: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
-    """PIL ``LANCZOS`` resize of a uint8 [h, w] (L), [h, w, 3] (RGB) or
-    [h, w, 4] (RGBA) image to ``hw`` = (H, W)."""
+    """PIL ``LANCZOS`` resize of a uint8 [h, w] (L), [h, w, 2] (LA),
+    [h, w, 3] (RGB) or [h, w, 4] (RGBA) image to ``hw`` = (H, W)."""
     arr = np.asarray(arr)
     if arr.dtype != np.uint8:
         raise ValueError(f"resize_lanczos_uint8 takes uint8, got {arr.dtype}")
@@ -125,12 +134,13 @@ def resize_lanczos_uint8(arr: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     out_h, out_w = hw
     if (h, w) == (out_h, out_w):
         return arr.copy()
-    rgba = arr.ndim == 3 and arr.shape[2] == 4
+    rgba = arr.ndim == 3 and arr.shape[2] in (2, 4)
     if rgba:
-        # PIL resizes RGBA as premultiplied RGBa (Convert.c::rgbA2rgba)
+        # PIL resizes LA and RGBA premultiplied, as La and RGBa
+        # (Convert.c::rgbA2rgba)
         a32 = arr.astype(np.int64)
-        arr = np.concatenate([_muldiv255(a32[..., :3], a32[..., 3:]),
-                              a32[..., 3:]], axis=-1).astype(np.uint8)
+        arr = np.concatenate([_muldiv255(a32[..., :-1], a32[..., -1:]),
+                              a32[..., -1:]], axis=-1).astype(np.uint8)
     first_v, count_v, kk_v = lanczos_coefficients(h, out_h)
     out = arr
     if out_w != w:
@@ -144,10 +154,10 @@ def resize_lanczos_uint8(arr: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     if rgba:
         # Convert.c::rgba2rgbA
         o = out.astype(np.int64)
-        alpha = o[..., 3:]
+        alpha = o[..., -1:]
         safe = np.where((alpha == 0) | (alpha == 255), 255, alpha)
-        rgb = np.where((alpha == 0) | (alpha == 255), o[..., :3],
-                       np.clip((255 * o[..., :3]) // safe, 0, 255))
+        rgb = np.where((alpha == 0) | (alpha == 255), o[..., :-1],
+                       np.clip((255 * o[..., :-1]) // safe, 0, 255))
         out = np.concatenate([rgb, alpha], axis=-1).astype(np.uint8)
     return np.ascontiguousarray(out)
 
@@ -184,3 +194,92 @@ def resize_bilinear_chw(arr, hw: Tuple[int, int]) -> np.ndarray:
     if out_w != w:
         x = torch.einsum("...hw,wW->...hW", x, _bilinear_weights(w, out_w, x.device))
     return x.cpu().numpy()
+
+
+def to_grey_pil(image: np.ndarray,
+                palette: Optional[np.ndarray] = None) -> np.ndarray:
+    """PIL's ``convert("L")`` of a uint8 image: RGB and RGBA through
+    Convert.c's L24, (19595 R + 38470 G + 7471 B + 0x8000) >> 16 (alpha
+    ignored); grey returned as is, bool (mode 1) as 0 and 255, uint16 grey
+    (I;16) clipped to 255, and grey + alpha without its alpha. With
+    ``palette`` ([N, 3], ``image_palette``), ``image`` holds its indices
+    (PIL's mode P), converted through their colours as Convert.c's p2l."""
+    image = np.asarray(image)
+    if palette is not None:
+        image = np.asarray(palette)[image]
+    if image.ndim == 2:
+        if image.dtype == np.bool_:
+            return image.astype(np.uint8) * 255
+        if image.dtype == np.uint16:
+            return np.minimum(image, 255).astype(np.uint8)
+        return image.copy()
+    if image.ndim == 3 and image.shape[2] == 2:
+        return image[..., 0].copy()
+    if image.ndim != 3 or image.shape[2] not in (3, 4):
+        raise ValueError(f"to_grey_pil takes grey, LA, RGB or RGBA, got "
+                         f"{image.shape}")
+    rgb = image[..., :3].astype(np.int64)
+    return ((19595 * rgb[..., 0] + 38470 * rgb[..., 1] + 7471 * rgb[..., 2]
+             + 0x8000) >> 16).astype(np.uint8)
+
+
+# leading bytes of the formats PIL opens and the port does not
+_OTHER_FORMATS = ((b"GIF8", "GIF"), (b"BM", "BMP"), (b"II*\0", "TIFF"),
+                  (b"MM\0*", "TIFF"), (b"RIFF", "WebP"), (b"\0\0\0\x0cjP", "JPEG 2000"))
+
+
+def _format_error(path, data: bytes) -> ValueError:
+    name = next((n for magic, n in _OTHER_FORMATS if data.startswith(magic)),
+                f"an unknown format (first bytes {data[:8].hex()})")
+    return ValueError(f"{path}: {name} image; the port reads PNG and JPEG")
+
+
+def image_size(path) -> Tuple[int, int]:
+    """(width, height) of a PNG or JPEG file from its header, as
+    ``Image.open(path).size``."""
+    with open(path, "rb") as f:
+        head = f.read(24)
+    if head[:8] == b"\x89PNG\r\n\x1a\n":
+        return tuple(int(v) for v in np.frombuffer(head[16:24], ">u4"))
+    if head[:2] == b"\xff\xd8":
+        return jpeg_size(path)
+    raise _format_error(path, head)
+
+
+def read_image(path) -> np.ndarray:
+    """``np.asarray(Image.open(path))`` of a PNG or JPEG file, told apart by
+    its first bytes (``utils/png.py``, ``utils/jpeg.py``). Any other format
+    raises ``ValueError`` naming it."""
+    data = Path(path).read_bytes()
+    if data[:8] == b"\x89PNG\r\n\x1a\n":
+        return decode_png(data)
+    if data[:2] == b"\xff\xd8":
+        return decode_jpeg(data)
+    raise _format_error(path, data)
+
+
+def image_palette(path) -> Optional[np.ndarray]:
+    """The [N, 3] uint8 colours of a palette PNG, whose ``read_image`` gives
+    the indices (PIL's mode P, which PIL resizes NEAREST whatever filter it
+    is asked for); None for any other PNG or JPEG."""
+    data = Path(path).read_bytes()
+    return png_palette(data) if data[:8] == b"\x89PNG\r\n\x1a\n" else None
+
+
+def resize_pil(image: np.ndarray, hw: Tuple[int, int],
+               lanczos: bool) -> np.ndarray:
+    """``Image.fromarray(image).resize(hw[::-1], LANCZOS or NEAREST)`` for
+    the images ``read_image`` gives: a copy at the same size; NEAREST for
+    every dtype (and for bool, PIL's mode 1, which PIL never filters);
+    LANCZOS for uint8 grey, LA, RGB and RGBA. A palette image's indices
+    are not grey: PIL resizes mode P NEAREST, so pass ``lanczos=False``
+    where ``image_palette`` is not None."""
+    image = np.asarray(image)
+    if tuple(image.shape[:2]) == tuple(hw):
+        return image.copy()
+    if not lanczos or image.dtype == np.bool_:
+        return resize_nearest(image, hw)
+    if image.dtype != np.uint8:
+        raise ValueError(f"LANCZOS resize of {image.dtype} images is not "
+                         "ported (the port resizes uint8 ones)")
+    return resize_lanczos_uint8(image, hw)

@@ -5,15 +5,18 @@ stand-in for PIL's PNG codec, which the card's machine does not have.
 and 16-bit grey ([H, W] uint16, big-endian as the format stores it), one
 IDAT chunk, no filtering (filter type 0 on every row).
 
-``read_png`` reads what ``np.array(Image.open(path))`` reads for PNGs of bit
-depth 8 or 16: grey, RGB, palette indices, grey + alpha and RGBA, with any
-of the five row filters and any number of IDAT chunks.
+``decode_png`` (and ``read_png`` of a file) reads what
+``np.array(Image.open(f))`` reads: grey at every bit depth, RGB, palette
+indices, grey + alpha and RGBA, interlaced (Adam7) or not, with any of the
+five row filters and any number of IDAT chunks; ``png_palette`` gives the
+colours of a palette image's indices.
 """
 from __future__ import annotations
 
 import struct
 import zlib
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -86,47 +89,123 @@ def _unfilter(filtered: np.ndarray, kinds: np.ndarray) -> np.ndarray:
     return out[1:, 1:].astype(np.uint8)
 
 
-def read_png(path) -> np.ndarray:
-    """The pixels of the PNG file at ``path``, as ``np.array(Image.open(
-    path))`` gives them for 8-bit files: [H, W] for grey and palette (the
-    palette indices), [H, W, 2] grey + alpha, [H, W, 3] RGB, [H, W, 4] RGBA;
-    uint8 at bit depth 8, uint16 at bit depth 16 (the full samples, as PIL
-    gives them for 16-bit grey). Adam7-interlaced files and bit depths
-    other than 8 and 16 raise ``NotImplementedError``."""
-    data = Path(path).read_bytes()
+# Adam7: (first column, first row, column step, row step) of each pass
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+# the bit depths each colour type allows
+_DEPTHS = {0: (1, 2, 4, 8, 16), 2: (8, 16), 3: (1, 2, 4, 8), 4: (8, 16),
+           6: (8, 16)}
+
+
+def _reduced_image(raw: np.ndarray, h: int, w: int, depth: int,
+                   channels: int):
+    """Unfilter one (sub-)image of ``h`` rows of ``w`` pixels from the start
+    of ``raw``; returns (samples [h, w, channels] uint8 or uint16, bytes
+    used). Bit depths below 8 (one channel) are unpacked MSB first."""
+    if h == 0 or w == 0:
+        return np.zeros((h, w, channels), np.uint16 if depth == 16
+                        else np.uint8), 0
+    if depth < 8:
+        stride, bpp = -(-w * depth // 8), 1
+    else:
+        bpp = channels * depth // 8
+        stride = w * bpp
+    used = h * (1 + stride)
+    if raw.size < used:
+        raise ValueError("PNG image data is truncated")
+    rows = raw[:used].reshape(h, 1 + stride)
+    filtered = rows[:, 1:].reshape(h, stride // bpp, bpp)
+    data = _unfilter(filtered, rows[:, 0].copy()).reshape(h, stride)
+    if depth < 8:
+        bits = np.unpackbits(data, axis=1).reshape(h, -1, depth)
+        weights = 1 << np.arange(depth - 1, -1, -1)
+        samples = (bits[:, :w] * weights).sum(-1).astype(np.uint8)
+        return samples[..., None], used
+    if depth == 16:
+        samples = data.reshape(h, w, channels, 2).view(">u2")[..., 0]
+        return samples.astype(np.uint16), used
+    return data.reshape(h, w, channels), used
+
+
+def _chunks(data: bytes):
+    """(IHDR fields, the joined IDAT bodies, the PLTE body or None) of a
+    PNG byte string."""
     if data[:8] != _SIGNATURE:
-        raise ValueError(f"{path} is not a PNG file")
-    pos, header, idat = 8, None, []
+        raise ValueError("not a PNG file")
+    pos, header, idat, palette = 8, None, [], None
     while pos + 8 <= len(data):
         length, kind = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + length]
         pos += 12 + length
         if kind == b"IHDR":
             header = struct.unpack(">IIBBBBB", body)
+        elif kind == b"PLTE":
+            palette = body
         elif kind == b"IDAT":
             idat.append(body)
         elif kind == b"IEND":
             break
     if header is None or not idat:
-        raise ValueError(f"{path}: no IHDR or no IDAT chunk")
+        raise ValueError("PNG: no IHDR or no IDAT chunk")
+    return header, b"".join(idat), palette
+
+
+def decode_png(data: bytes) -> np.ndarray:
+    """The pixels of a PNG byte string, as ``np.array(Image.open(f))`` gives
+    them: [H, W] for grey and palette (the palette indices), [H, W, 2] grey
+    + alpha, [H, W, 3] RGB, [H, W, 4] RGBA; uint8 at bit depth 8, uint16 for
+    16-bit grey (PIL's ``I;16``), the high bytes of 16-bit colour as uint8
+    (PIL's ``RGB`` and ``RGBA``; 16-bit grey + alpha widened to RGBA), bool
+    for 1-bit grey (PIL's mode ``1``), 2- and 4-bit grey scaled to 8 bits
+    (x85, x17), and 1-, 2- and 4-bit palette indices unscaled. Interlaced
+    (Adam7) or not, any row filters, any number of IDAT chunks."""
+    header, idat, _ = _chunks(data)
     w, h, depth, colour, compression, filter_method, interlace = header
-    if interlace:
-        raise NotImplementedError(f"{path}: Adam7 interlaced PNG")
-    if depth not in (8, 16) or colour not in _CHANNELS or (
-            colour == 3 and depth != 8):
-        raise NotImplementedError(
-            f"{path}: PNG bit depth {depth} with colour type {colour}")
-    if compression or filter_method:
-        raise ValueError(f"{path}: unknown compression or filter method")
+    if colour not in _DEPTHS or depth not in _DEPTHS[colour]:
+        raise ValueError(f"PNG: bit depth {depth} with colour type {colour} "
+                         "does not exist")
+    if compression or filter_method or interlace > 1:
+        raise ValueError("PNG: unknown compression, filter or interlace "
+                         "method")
     channels = _CHANNELS[colour]
-    bpp = channels * depth // 8
-    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
-    if raw.size < h * (1 + w * bpp):
-        raise ValueError(f"{path}: image data is truncated")
-    rows = raw[:h * (1 + w * bpp)].reshape(h, 1 + w * bpp)
-    pixels = _unfilter(rows[:, 1:].reshape(h, w, bpp), rows[:, 0].copy())
-    if depth == 16:
-        pixels = pixels.reshape(h, w, channels, 2).view(">u2")[..., 0]
-        pixels = pixels.astype(np.uint16)
-    pixels = pixels.reshape(h, w, channels)
-    return pixels[..., 0] if channels == 1 else pixels
+    raw = np.frombuffer(zlib.decompress(idat), np.uint8)
+    if interlace:
+        pixels = np.zeros((h, w, channels),
+                          np.uint16 if depth == 16 else np.uint8)
+        at = 0
+        for x0, y0, dx, dy in _ADAM7:
+            ph, pw = -(-max(h - y0, 0) // dy), -(-max(w - x0, 0) // dx)
+            sub, used = _reduced_image(raw[at:], ph, pw, depth, channels)
+            pixels[y0::dy, x0::dx] = sub
+            at += used
+    else:
+        pixels, _ = _reduced_image(raw, h, w, depth, channels)
+    if depth < 8 and colour == 0:
+        # PIL's modes 1, L;2 and L;4
+        pixels = (pixels > 0) if depth == 1 else (
+            pixels * (255 // ((1 << depth) - 1))).astype(np.uint8)
+    if depth == 16 and colour != 0:
+        pixels = (pixels >> 8).astype(np.uint8)
+        if colour == 4:
+            pixels = pixels[..., [0, 0, 0, 1]]
+    return pixels[..., 0] if pixels.shape[-1] == 1 else pixels
+
+
+def png_palette(data: bytes) -> Optional[np.ndarray]:
+    """The [N, 3] uint8 palette of a palette PNG byte string (the colours
+    ``decode_png``'s indices name, PIL's mode ``P``); None for any other
+    colour type."""
+    header, _, palette = _chunks(data)
+    if header[3] != 3:
+        return None
+    if palette is None or len(palette) % 3:
+        raise ValueError("PNG: palette image without a valid PLTE chunk")
+    return np.frombuffer(palette, np.uint8).reshape(-1, 3).copy()
+
+
+def read_png(path) -> np.ndarray:
+    """``decode_png`` of the file at ``path`` (errors name the file)."""
+    try:
+        return decode_png(Path(path).read_bytes())
+    except ValueError as err:
+        raise ValueError(f"{path}: {err}") from None

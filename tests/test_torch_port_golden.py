@@ -81,6 +81,19 @@ heads), eagerly, clusters and scores each, and writes
 ``contrastive_lift_tpu_torch/testdata/r5b_options_golden.npz``: per option
 the maps at every 12th ray, the scores, the calibrated budgets, the
 guardrail maxima and warnings; add the argument ``options`` (about 6 min).
+
+``write_preprocess_golden()`` writes a raw ScanNet capture at ScanNet's own
+sizes (``inference/fidelity.py::write_raw_scannet``: 12 frames of 968x1296
+colour, encoded by PIL at quality 90, 480x640 depth, uint16 labels,
+Mask2Former dumps), runs the JAX package's ``preprocess_scannet`` on it
+(every frame streamed, keyframe window 2, 480x640) and its PanopLi reader
+on the tree, and writes ``contrastive_lift_tpu_torch/testdata/
+scannet_preprocess_golden.npz``: the ``.sens`` file's sha256, every file
+of the tree with its digest (``fidelity.file_digest``: JPEG, txt and json
+bytes, PNG headers and PIL's pixels, npz arrays, pickled objects), and the
+reader's arrays as digests with every 509th ray; the same again under
+``cut_`` for the scene cut to 2 raw frames (keyframe window 1); add the
+argument ``preprocess`` (about 20 s).
 """
 import subprocess
 import sys
@@ -107,6 +120,7 @@ CLI_GOLDEN = GOLDEN.with_name("r5b_cli_golden.npz")
 TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
 OPTIONS_GOLDEN = GOLDEN.with_name("r5b_options_golden.npz")
 DISTILLED_GOLDEN = GOLDEN.with_name("r5b_distilled_golden.npz")
+PREPROCESS_GOLDEN = GOLDEN.with_name("scannet_preprocess_golden.npz")
 RAY_STRIDE = 12
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 # a golden ray counts as moved by jit where a map differs by more than this
@@ -119,6 +133,9 @@ CLI_COMMAND = COMMAND + " cli"
 TOOLS_COMMAND = COMMAND + " tools"
 OPTIONS_COMMAND = COMMAND + " options"
 DISTILLED_COMMAND = COMMAND + " distilled"
+PREPROCESS_COMMAND = COMMAND + " preprocess"
+# the preprocessing golden's records: (prefix, raw frames, keyframe window)
+PREPROCESS_RECORDS = (("", 12, 2), ("cut_", 2, 1))
 # the training golden's sampler seed
 TRAIN_SEED = 0
 
@@ -1550,8 +1567,150 @@ def test_options_golden_regenerates(tmp_path):
                            - float(g[f"{name}_{key}"])) <= 0.005
 
 
+def write_preprocess_golden(path=PREPROCESS_GOLDEN) -> dict:
+    """The JAX package's ``preprocess_scannet`` and PanopLi reader on the
+    raw ScanNet capture, with PIL as its codec (see the module docstring);
+    the full scene and its 2-frame cut."""
+    import hashlib
+    import io
+    import tempfile
+
+    from PIL import Image
+
+    from contrastive_lift_tpu.config import Config as JConfig
+    from contrastive_lift_tpu.data import load_scene as j_load_scene
+    from contrastive_lift_tpu.data.preprocessing.scannet import (
+        preprocess_scannet as j_preprocess)
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+
+    def pil_encode(image, quality):
+        buf = io.BytesIO()
+        Image.fromarray(image).save(buf, "JPEG", quality=quality)
+        return buf.getvalue()
+
+    def pil_pixels(data):
+        return np.array(Image.open(io.BytesIO(data)))
+
+    def j_load(tree):
+        return j_load_scene(JConfig(dataset_class="panopli",
+                                    dataset_root=str(tree),
+                                    image_dim=fid.SCANNET_IMAGE_HW))
+
+    out = {"seed": fid.SCANNET_SEED}
+    with tempfile.TemporaryDirectory() as tmp:
+        for prefix, n_frames, window in PREPROCESS_RECORDS:
+            raw = fid.write_raw_scannet(Path(tmp) / f"{prefix}raw",
+                                        n_frames=n_frames, encode=pil_encode)
+            tree = Path(tmp) / f"{prefix}tree"
+            j_preprocess(**fid.preprocess_kwargs(raw, tree, window))
+            digests = fid.tree_digests(tree, pil_pixels)
+            out.update({
+                prefix + "sens_sha256": np.array(hashlib.sha256(
+                    raw["sens"].read_bytes()).hexdigest()),
+                prefix + "files": np.array(list(digests)),
+                prefix + "digests": np.array(list(digests.values())),
+                **{prefix + "reader_" + k: v for k, v in
+                   fid.reader_record(j_load(tree)).items()}})
+            out[prefix + "frames"] = n_frames
+            out[prefix + "keyframe_window"] = window
+    out.update(commit=_commit(), command=PREPROCESS_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
+def test_preprocess_golden_layout():
+    """The committed preprocessing golden: both records, their trees'
+    files (color, pose, labels, probabilities, splits, the pickle) with a
+    digest each, the reader's 6 frames split 4 / 2 (cut: 1 / 1) with
+    every field's digest and every 509th ray; under 1 MB."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    assert PREPROCESS_GOLDEN.stat().st_size < 1 << 20
+    with np.load(PREPROCESS_GOLDEN) as g:
+        assert int(g["seed"]) == fid.SCANNET_SEED
+        for prefix, n_frames, window in PREPROCESS_RECORDS:
+            assert int(g[prefix + "frames"]) == n_frames
+            assert int(g[prefix + "keyframe_window"]) == window
+            assert len(str(g[prefix + "sens_sha256"])) == 64
+            files = list(g[prefix + "files"])
+            assert len(files) == len(g[prefix + "digests"])
+            kept = n_frames // window
+            for sub, ext in (("color", "jpg"), ("pose", "txt"),
+                             ("m2f_semantics", "png"), ("rs_instance", "png"),
+                             ("m2f_probabilities", "npz"), ("depth", "png")):
+                assert sum(f.startswith(sub + "/") and f.endswith(ext)
+                           for f in files) == kept, sub
+            assert {"splits.json", "segmentation_data.pkl",
+                    "intrinsic/intrinsic_color.txt"} <= set(files)
+            train = int(kept * 0.8)
+            np.testing.assert_array_equal(g[prefix + "reader_splits"],
+                                          [train, kept - train])
+            assert g[prefix + "reader_digests"].shape == (
+                kept, len(fid.READER_FIELDS))
+            n_rays = -(-fid.SCANNET_IMAGE_HW[0] * fid.SCANNET_IMAGE_HW[1]
+                       // fid.SCANNET_RAY_STRIDE)
+            assert g[prefix + "reader_rays"].shape == (kept, n_rays, 8)
+            assert np.isfinite(g[prefix + "reader_rays"]).all()
+        assert len(str(g["commit"])) == 40
+        assert str(g["command"]) == PREPROCESS_COMMAND
+
+
+def _port_preprocess(tmp_path, prefix):
+    """The port's part of the preprocessing phase on the CPU against the
+    golden's ``prefix`` record: the raw capture (its ``.sens`` bytes), the
+    tree and the reader."""
+    import hashlib
+
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    with np.load(PREPROCESS_GOLDEN) as g:
+        golden = {k: g[k] for k in g.files}
+    raw = fid.write_raw_scannet(tmp_path / "raw",
+                                n_frames=int(golden[prefix + "frames"]))
+    assert (hashlib.sha256(raw["sens"].read_bytes()).hexdigest()
+            == str(golden[prefix + "sens_sha256"]))
+    fid.run_preprocess(raw, tmp_path / "tree",
+                       int(golden[prefix + "keyframe_window"]))
+    scene = fid.load_preprocessed(tmp_path / "tree")
+    res = fid.check_preprocess(tmp_path / "tree", golden, prefix, scene)
+    assert res["files"] == len(golden[prefix + "files"])
+
+
+def test_port_on_cpu_matches_preprocess_golden_cut(tmp_path):
+    """The 2-frame cut at 968x1296 (an odd number of luma block rows, so the
+    encoder's dummy block row) through the port on the CPU: the ``.sens``
+    sha256, every file of the tree and the reader's arrays equal to the
+    golden's. Then the card phase's training and render helpers on the
+    tree, at a small grid and frame size: finite losses and maps."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    _port_preprocess(tmp_path, "cut_")
+    overrides = dict(fid.PREPROCESS_OVERRIDES, min_grid_dim=16,
+                     max_grid_dim=20, batch_size=256, chunk=512,
+                     max_rays_instances=64, max_rays_segments=64)
+    fit = fid.train_preprocessed(tmp_path / "tree", tmp_path / "run",
+                                 overrides, device="cpu", train_hw=(12, 16))
+    losses = [r for r in fit["records"] if "loss_main" in r]
+    assert {"loss_clustering", "loss_segment"} <= set(losses[-1])
+    assert all(np.isfinite(v) for r in losses for v in r.values()
+               if isinstance(v, float))
+    scene = fid.load_preprocessed(tmp_path / "tree", (24, 32))
+    out = fid.render_preprocessed(fit["last"], fit["cfg"], scene,
+                                  device="cpu", chunk=256)
+    assert out["rays"] == 24 * 32
+    assert all(np.isfinite(v).all() for m in out["maps"] for v in m.values())
+
+
+@pytest.mark.slow
+def test_port_on_cpu_matches_preprocess_golden(tmp_path):
+    """The whole 12-frame capture through the port on the CPU (about a
+    minute: 24 frames of 968x1296 decoded in Python)."""
+    _port_preprocess(tmp_path, "")
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["distilled"]:
+    if sys.argv[1:] == ["preprocess"]:
+        rec = write_preprocess_golden()
+        print({k: v for k, v in rec.items() if np.size(v) < 60})
+    elif sys.argv[1:] == ["distilled"]:
         rec = write_distilled_golden()
         print({k: v for k, v in rec.items() if np.size(v) < 60})
     elif sys.argv[1:] == ["options"]:

@@ -461,3 +461,18 @@ def test_dryrun_multichip_on_two_cpu_ranks(tmp_path):
     assert set(res["val"]) >= {"psnr", "iou", "pq"}
     assert res["budgets_equal"] and res["render_max_abs_err"] <= MAP_ATOL
     assert len(set(res["param_digests"])) == 1
+
+
+@pytest.mark.skipif(torch.cuda.is_available(), reason="checks the default "
+                    "device on a host without a card")
+@pytest.mark.parametrize("entry", ["dryrun_multichip", "trainer_steps"])
+def test_dryrun_entry_points_default_to_the_card(tmp_path, entry):
+    """Both entry points of the dry run default to ``device="cuda"``: on a
+    host without a card, called without ``device="cpu"``, they raise as
+    every other entry point does (the dry run before it spawns a rank)."""
+    with pytest.raises(RuntimeError, match="torch.cuda.is_available"):
+        if entry == "dryrun_multichip":
+            dryrun.dryrun_multichip(2, timeout=TIMEOUT, store_dir=tmp_path)
+        else:
+            dryrun.trainer_steps(dict(TRAINER_KW, n_data_shards=1), SCENE_KW,
+                                 str(tmp_path / "r"), steps=0)
