@@ -48,7 +48,9 @@ Phases, each printing JSON lines with their seconds:
              with span gathers, ``fidelity.production_chunk(option="span")``),
              and bit for bit against the fused form on every span whose
              runs fit its rows, timed as above with the fused form's time on
-             the same samples beside it;
+             the same samples beside it (``--against`` sources that define
+             the span entry point are timed on the same spans; others report
+             ``ms`` null);
 4. main    - the port's dense render of the committed r5b checkpoint on the
              4 val frames of its scene, then mean-shift and PQ^scene
              (``inference/fidelity.py::run_dense``), held against the JAX
@@ -537,7 +539,8 @@ OTHER_SOURCES = []
 def other_library(source: Path):
     """(library, takes_bf16) for another source of the kernel, built with the
     repository's nvcc flags. A source whose C entry points take no row-type
-    argument (the float32-only interface) has takes_bf16 False."""
+    argument (the float32-only interface) has takes_bf16 False; the span
+    entry point is declared where the source defines it."""
     import ctypes
     import hashlib
     from contrastive_lift_tpu_torch.ops import brick_interp as bi
@@ -555,31 +558,34 @@ def other_library(source: Path):
     lib.brick_interp_launch.argtypes = [p, *row_type, p, p, i64, p]
     lib.sample_density_brick_launch.argtypes = [
         p, *row_type, p, p, i64, i32, i32, i32, ctypes.c_float, p]
+    if b"sample_density_brick_span_launch" in text:
+        lib.sample_density_brick_span_launch.argtypes = [
+            p, i32, p, p, i64, i32, i32, i32, i32, i32, ctypes.c_float, p]
     return lib, typed
 
 
-def other_call(source: Path, kname: str, rows, positions, *grid_args):
+def other_call(source: Path, kname: str, rows, positions, n: int, tail=()):
     """A call of ``kname`` from another source on the same inputs as the
-    repository's wrapper, or None when that source does not take this row
-    type. Not counted as a launch of the repository's kernel."""
+    repository's wrapper (``n`` samples, or spans for the span form, then
+    the C arguments ``tail`` before the stream), or None when that source
+    does not take this row type or lacks the entry point. Not counted as a
+    launch of the repository's kernel."""
     import torch
     from contrastive_lift_tpu_torch.ops import brick_interp as bi
 
     lib, typed = other_library(source)
     if rows.dtype != torch.float32 and not typed:
         return None
-    n = positions.shape[0]
-    out = torch.empty(n, dtype=torch.float32, device=rows.device)
+    if not hasattr(lib, kname + "_launch"):
+        return None
+    launch = getattr(lib, kname + "_launch")
+    out = torch.empty(positions.numel() // 3, dtype=torch.float32,
+                      device=rows.device)
     head = [rows.data_ptr()] + ([bi.ROW_DTYPES[rows.dtype]] if typed else [])
-    tail = []
-    if grid_args:
-        grid, shift = grid_args
-        tail = [*(int(g) for g in grid), float(shift)]
 
     def call():
-        err = getattr(lib, kname + "_launch")(
-            *head, positions.data_ptr(), out.data_ptr(), n, *tail,
-            torch.cuda.current_stream().cuda_stream)
+        err = launch(*head, positions.data_ptr(), out.data_ptr(), n, *tail,
+                     torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"{source} {kname}: cudaError {err}")
         return out
@@ -587,10 +593,11 @@ def other_call(source: Path, kname: str, rows, positions, *grid_args):
 
 
 def time_other(source: Path, kname: str, ref, magnitude, rows, positions,
-               *grid_args):
+               n: int, tail=()):
     """Another source's kernel on the same inputs: its error against the
-    plain version and its time, measured as the repository's."""
-    call = other_call(source, kname, rows, positions, *grid_args)
+    plain version and its time, measured as the repository's; ``ms`` None
+    where that source cannot take them."""
+    call = other_call(source, kname, rows, positions, n, tail)
     if call is None:
         return {"source": str(source), "ms": None}
     got = call()
@@ -634,7 +641,8 @@ def fused_case(dense, xyz, shift, dtype):
                            atlas, xyz, grid, shift), library, xyz),
            "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms,
            "against": [time_other(src, "sample_density_brick", ref,
-                                  magnitude, atlas, xyz, grid, shift)
+                                  magnitude, atlas, xyz, n,
+                                  [*(int(g) for g in grid), float(shift)])
                        for src in OTHER_SOURCES]}
     return rec
 
@@ -677,7 +685,7 @@ def literal_case(dense, xyz, dtype):
                        frac),
            "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms,
            "against": [time_other(src, "brick_interp", ref, magnitude, rows,
-                                  frac)
+                                  frac, n)
                        for src in OTHER_SOURCES]}
     return rec
 
@@ -731,7 +739,8 @@ def span_rows_used(grid, xyz, rows: int):
 def span_case(dense, xyz, shift, dtype, rows):
     """The span form against its plain version and, on the spans whose runs
     fit, bit for bit against the fused form's kernel; timed as every case,
-    with the fused form's time on the same samples beside it."""
+    with the fused form's time on the same samples beside it, and each
+    ``--against`` source's span form on the same spans."""
     import torch
     from contrastive_lift_tpu_torch.ops import brick_interp as bi
     from contrastive_lift_tpu_torch.ops.fused_grid import build_brick_atlas
@@ -772,7 +781,12 @@ def span_case(dense, xyz, shift, dtype, rows):
                     atlas, xyz, grid, shift, rows), library, flat),
             "fused_ms": timed(lambda: bi.sample_density_brick(
                 atlas, flat, grid, shift))[0],
-            "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms}
+            "bound_ms": b_ms, "bound_by": b_by, "sector_floor_ms": floor_ms,
+            "against": [time_other(
+                src, "sample_density_brick_span", ref.view(-1),
+                magnitude.view(-1), atlas, xyz, n // xyz.shape[2],
+                [xyz.shape[2], rows, *grid, float(shift)])
+                for src in OTHER_SOURCES]}
 
 
 def run_case(phase, kname, inputs, dtype, case, samples, empty_kernel_ms):

@@ -59,14 +59,19 @@
 //   contrastive_lift_tpu/ops/fused_grid.py::sample_density_brick_span. The
 //   T samples of a span (a sub-segment of one ray) lie along a line, so
 //   their bricks form at most W runs, and the JAX function reads W atlas
-//   rows a span instead of T. Here a warp takes min(32/T, 16/W) spans, T
-//   lanes each; the first sample of each run copies the run's row whole
-//   into shared memory with 16-B cp.async copies, and every sample reads its
-//   8 corner lanes there, with the fused form's arithmetic: where no run is
-//   clamped the values are the fused form's bit for bit. A span with more
-//   brick changes than W-1 is clamped as JAX clamps it (its last run reads
-//   the largest brick among its samples). Simple, not tuned: it moves whole
-//   rows where the fused form moves 8 lanes a sample (PERF.md).
+//   rows a span instead of T. A span with more brick changes than W-1 is
+//   clamped as JAX clamps it: its last run reads the largest brick among
+//   its samples. Here a warp takes 32 / T spans at a time, T lanes each, one
+//   sample a lane; register shuffles find each sample's run and its row, and
+//   the sample gathers its 8 corner lanes straight from that row with
+//   read-only loads, with the fused form's arithmetic: where no run is
+//   clamped the values are the fused form's bit for bit. Samples that share
+//   a row meet in the L1, which on the H100 merges a warp's loads of one row
+//   (what staging whole rows in shared memory would buy, at the cost of a
+//   copy and a wait: PERF.md). Persistent warps, three blocks of 256 an SM,
+//   walk over tiles of two groups and stage the next tile's xyz with 16-B
+//   cp.async copies while they gather the current one, so residency, not
+//   staging, hides the atlas's latency.
 //
 // Built by nvcc into a shared library with a plain C interface and bound with
 // ctypes (contrastive_lift_tpu_torch/ops/brick_interp.py). Each entry point
@@ -478,105 +483,137 @@ __global__ void __launch_bounds__(kThreads)
 
 // ---- sample_density_brick_span -----------------------------------------------
 
-// A warp handles min(32 / T, kSpanSlots / W) spans at once, T consecutive
-// lanes per span, and stages up to W atlas rows for each of them.
-constexpr int kSpanWarps = 4;
-constexpr int kSpanThreads = 32 * kSpanWarps;
-constexpr int kSpanSlots = 16;
+// Groups of 32 / T spans a warp takes at once, and groups in a warp's tile;
+// blocks an SM keeps resident (at most 80 registers a thread). On the H100
+// this beat one group a tile, four groups a tile, a plain grid of one tile a
+// warp, 64 registers and 16-B corner-pair loads on r5b's span chunk (PERF.md).
+constexpr int kSpanRounds = 2;
+constexpr int kSpanBlocksPerSM = 3;
 
 // xyz [n_spans, T, 3] -> out [n_spans, T]: the T samples of a span lie
-// consecutively along a ray, so their bricks form runs. Lane j of a span's
+// consecutively along a ray, so their bricks form runs. A warp takes 32 / T
+// spans at a time (a group), T consecutive lanes each, and lane j of a span's
 // lanes takes sample j: its run is the count of brick changes among samples
-// 1..j, clamped to W-1 as in the JAX function; the first sample of each run
-// copies the run's row (for the clamped last run, the largest brick among its
-// samples, JAX's max) whole into the run's shared-memory slot, and every
-// sample reads its 8 corner lanes there. A run that no sample starts is not
-// copied and no sample reads its slot.
+// 1..j (a ballot), clamped to W-1 as in the JAX function. A sample of a run
+// that fits reads its own brick's row; a sample of the clamped last run reads
+// the largest brick among that run's samples (JAX's max: a segmented
+// shuffle-down max, then a shuffle from the span's first lane). Each sample
+// then loads its 8 corner lanes straight from that row with read-only loads
+// and blends them as the fused form does. Persistent warps walk over tiles of
+// kSpanRounds consecutive groups; a warp stages its tile's xyz into shared
+// memory with 16-B cp.async copies, and the next tile's while it gathers the
+// current one. A tile starts on a whole span, so the samples a tile holds
+// are whole spans. Tile indices fit in int (2^31 tiles of at least 34
+// samples would be 876 GB of xyz), which keeps the kernel at 80 registers
+// (109 with 64-bit ones).
 template <typename T>
-__global__ void __launch_bounds__(kSpanThreads)
+__global__ void __launch_bounds__(kThreads, kSpanBlocksPerSM)
     sample_density_brick_span_kernel(const T* __restrict__ atlas,
                                      const float* __restrict__ xyz,
                                      float* __restrict__ out, int64_t n_spans,
                                      int span_len, int rows_per_span, int gx,
                                      int gy, int gz, float splus_shift) {
   constexpr unsigned kAll = 0xffffffffu;
-  constexpr int kE = kChunkElems<T>;
-  constexpr int kRowChunks = kLanes / kE;
-  __shared__ __align__(16) uint4 s_rows[kSpanWarps][kSpanSlots][kLanes / 4];
+  constexpr int kSpanTile = 32 * kSpanRounds;
+  __shared__ __align__(16) float s_xyz[kWarps][3 * kSpanTile];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
+  float* sx = s_xyz[warp];
   const int W = rows_per_span;
-  const int per_warp = min(32 / span_len, kSpanSlots / W);
+  const int per_warp = 32 / span_len;
+  const int group = per_warp * span_len;  // samples of a group
   const int seg = lane / span_len;
   const int j = lane - seg * span_len;
+  const int first = seg * span_len;  // the lane of the span's sample 0
   const bool in_seg = seg < per_warp;
   // the lanes of this lane's span
   const unsigned seg_lanes =
       !in_seg ? 0u
-              : (span_len == 32 ? kAll
-                                : ((1u << span_len) - 1u) << (seg * span_len));
+              : (span_len == 32 ? kAll : ((1u << span_len) - 1u) << first);
   const unsigned upto = (2u << lane) - 1u;  // lanes 0..lane
   const float g[3] = {static_cast<float>(gx), static_cast<float>(gy),
                       static_cast<float>(gz)};
   const int by = (gy - 1 + 3) / 4;
   const int bz = (gz - 1 + 3) / 4;
-  const int64_t n_groups = (n_spans + per_warp - 1) / per_warp;
-  const int64_t stride = static_cast<int64_t>(gridDim.x) * kSpanWarps;
-  for (int64_t grp = static_cast<int64_t>(blockIdx.x) * kSpanWarps + warp;
-       grp < n_groups; grp += stride) {
-    const int64_t span = grp * per_warp + seg;
-    const bool live = in_seg && span < n_spans;
-    const int64_t s = span * span_len + j;
-    float f[3] = {0.0f, 0.0f, 0.0f};
-    int brick = -1;
-    if (live) brick = brick_row(g, by, bz, xyz + 3 * s, f);
-    const int prev = __shfl_up_sync(kAll, brick, 1);
-    const bool moves = live && j > 0 && brick != prev;
-    const int run_free = __popc(__ballot_sync(kAll, moves) & upto & seg_lanes);
-    const int run = min(run_free, W - 1);
-    // the largest brick among this and the later samples of the span that
-    // fall in the last (clamped) run
-    int top = (live && run == W - 1) ? brick : -1;
-#pragma unroll
-    for (int d = 1; d < 32; d <<= 1) {
-      const int o = __shfl_down_sync(kAll, top, d);
-      if (j + d < span_len) top = max(top, o);
-    }
-    const int slot = seg * W + run;
-    const bool starts = live && (j == 0 || moves) && run_free < W;
-    const int row = run_free == W - 1 ? top : brick;
-    unsigned stagers = __ballot_sync(kAll, starts);
-    while (stagers != 0u) {
-      const int src = __ffs(stagers) - 1;
-      stagers &= stagers - 1u;
-      const int r = __shfl_sync(kAll, row, src);
-      const int sl = __shfl_sync(kAll, slot, src);
-      if (lane < kRowChunks) {
-        cp_async16(&s_rows[warp][sl][lane],
-                   atlas + static_cast<int64_t>(r) * kLanes + lane * kE);
-      }
-    }
-    cp_async_commit();
+  const int64_t n = n_spans * span_len;
+  const int tile_len = kSpanRounds * group;
+  const int n_tiles = static_cast<int>((n + tile_len - 1) / tile_len);
+  const int stride = gridDim.x * kWarps;
+  int tile = blockIdx.x * kWarps + warp;
+  // the first sample of tile t, and its samples (a multiple of span_len)
+  auto tile_start = [&](int t) { return static_cast<int64_t>(t) * tile_len; };
+  auto tile_samples = [&](int t) {
+    const int64_t left = n - tile_start(t);
+    return static_cast<int>(left < tile_len ? left : tile_len);
+  };
+  if (tile < n_tiles) {
+    stage_floats(sx, xyz + 3 * tile_start(tile), 3 * tile_samples(tile), lane,
+                 32);
+  }
+  cp_async_commit();
+
+  for (; tile < n_tiles; tile += stride) {
     cp_async_wait<0>();
-    __syncwarp();  // the staged rows are in shared memory
-    if (live) {
-      const Cell c = cell_of(f[0], f[1], f[2]);
-      float value = 0.0f;
-      if (has_weight(c)) {
-        const T* srow = reinterpret_cast<const T*>(s_rows[warp][slot]);
-        float v[8];
+    __syncwarp();  // the tile's xyz is in shared memory
+    const int nt = tile_samples(tile);
+    int row[kSpanRounds];
+    Cell cell[kSpanRounds];
+    bool here[kSpanRounds], live[kSpanRounds];
+#pragma unroll
+    for (int k = 0; k < kSpanRounds; ++k) {
+      const int i = k * group + lane;
+      // a sample of a span that exists (nt holds whole spans)
+      here[k] = in_seg && i < nt;
+      float f[3] = {0.0f, 0.0f, 0.0f};
+      int brick = -1;
+      if (here[k]) brick = brick_row(g, by, bz, sx + 3 * i, f);
+      const int prev = __shfl_up_sync(kAll, brick, 1);
+      const bool moves = here[k] && j > 0 && brick != prev;
+      const int run_free =
+          __popc(__ballot_sync(kAll, moves) & upto & seg_lanes);
+      const bool clamped = here[k] && run_free >= W - 1;
+      // the largest brick among this and the later samples of the span in
+      // the clamped run; at the span's first lane, among all of them
+      int top = clamped ? brick : -1;
+      for (int d = 1; d < span_len; d <<= 1) {
+        const int o = __shfl_down_sync(kAll, top, d);
+        if (j + d < span_len) top = max(top, o);
+      }
+      top = __shfl_sync(kAll, top, first);
+      row[k] = clamped ? top : brick;
+      cell[k] = cell_of(f[0], f[1], f[2]);
+      live[k] = here[k] && has_weight(cell[k]);
+    }
+    __syncwarp();  // every lane has read the tile's xyz
+
+    float v[kSpanRounds][8];
+#pragma unroll
+    for (int k = 0; k < kSpanRounds; ++k) {
+      if (live[k]) {
+        const T* src = atlas + static_cast<int64_t>(row[k]) * kLanes;
 #pragma unroll
         for (int p = 0; p < 4; ++p) {
-          const int l = c.base + pair_offset(p);
-          v[2 * p] = smem_elem<T>(srow, l);
-          v[2 * p + 1] = smem_elem<T>(srow, l + 1);
+          const int l = cell[k].base + pair_offset(p);
+          v[k][2 * p] = load_elem<T>(src, l);
+          v[k][2 * p + 1] = load_elem<T>(src, l + 1);
         }
-        value = blend(c, v);
       }
-      out[s] = value + splus_shift;
     }
-    __syncwarp();  // every lane has read its slot before the next copies
+    // the next tile's xyz streams in while this tile's corners are used
+    if (tile + stride < n_tiles) {
+      stage_floats(sx, xyz + 3 * tile_start(tile + stride),
+                   3 * tile_samples(tile + stride), lane, 32);
+    }
+    cp_async_commit();
+
+#pragma unroll
+    for (int k = 0; k < kSpanRounds; ++k) {
+      if (!here[k]) continue;
+      const float value = live[k] ? blend(cell[k], v[k]) : 0.0f;
+      out[tile_start(tile) + k * group + lane] = value + splus_shift;
+    }
   }
+  cp_async_wait<0>();
 }
 
 inline unsigned int blocks_for(int64_t n) {
@@ -608,12 +645,12 @@ unsigned int density_blocks(int64_t n) {
                          (n + kWarps * kTile - 1) / (kWarps * kTile), cache);
 }
 
-// Blocks of sample_density_brick_span_kernel<T> for n_groups warp groups.
+// Blocks of sample_density_brick_span_kernel<T> for n_tiles warp tiles.
 template <typename T>
-unsigned int span_blocks(int64_t n_groups) {
+unsigned int span_blocks(int64_t n_tiles) {
   static int cache[64] = {};
-  return resident_blocks(sample_density_brick_span_kernel<T>, kSpanThreads,
-                         (n_groups + kSpanWarps - 1) / kSpanWarps, cache);
+  return resident_blocks(sample_density_brick_span_kernel<T>, kThreads,
+                         (n_tiles + kWarps - 1) / kWarps, cache);
 }
 
 }  // namespace
@@ -658,18 +695,17 @@ extern "C" int sample_density_brick_span_launch(
     int64_t n_spans, int span_len, int rows_per_span, int gx, int gy, int gz,
     float splus_shift, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int per_warp = (32 / span_len) < (kSpanSlots / rows_per_span)
-                           ? 32 / span_len
-                           : kSpanSlots / rows_per_span;
-  const int64_t n_groups = (n_spans + per_warp - 1) / per_warp;
+  const int64_t group = (32 / span_len) * span_len;
+  const int64_t n_tiles = (n_spans * span_len + kSpanRounds * group - 1) /
+                          (kSpanRounds * group);
   if (atlas_bf16) {
     sample_density_brick_span_kernel<Bf16>
-        <<<span_blocks<Bf16>(n_groups), kSpanThreads, 0, s>>>(
+        <<<span_blocks<Bf16>(n_tiles), kThreads, 0, s>>>(
             static_cast<const Bf16*>(atlas), xyz, out, n_spans, span_len,
             rows_per_span, gx, gy, gz, splus_shift);
   } else {
     sample_density_brick_span_kernel<float>
-        <<<span_blocks<float>(n_groups), kSpanThreads, 0, s>>>(
+        <<<span_blocks<float>(n_tiles), kThreads, 0, s>>>(
             static_cast<const float*>(atlas), xyz, out, n_spans, span_len,
             rows_per_span, gx, gy, gz, splus_shift);
   }

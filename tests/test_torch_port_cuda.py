@@ -201,20 +201,29 @@ def _max_runs(grid_dim, xyz):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("T,W", [(8, 4), (8, 2), (16, 4), (32, 16), (1, 2),
-                                 (5, 3)])
-def test_span_form_matches_plain_version_on_card(cuda_device, dtype, T, W):
+@pytest.mark.parametrize("T,W,n_rays", [
+    (8, 4, 257), (8, 2, 257), (16, 4, 257), (32, 16, 257), (1, 2, 257),
+    (5, 3, 257), (8, 8, 257), (8, 16, 257), (3, 2, 257), (7, 5, 257),
+    (8, 4, 25_001), (5, 3, 25_001)])
+def test_span_form_matches_plain_version_on_card(cuda_device, dtype, T, W,
+                                                  n_rays):
     """Span form, kernel against plain on spans that fit their rows, spans
     the kernel must clamp as the JAX function does, and spans whose later
-    runs are empty, with span counts that leave a warp's last group short:
-    1e-5 absolute (float32 sums of the same widened values in another
-    order). Where every span fits, the kernel equals the fused form's kernel
-    bit for bit; every call counts one launch of its row type."""
+    runs are empty: 1e-5 absolute (float32 sums of the same widened values
+    in another order). T and W cover whole and partial warps (T=5, 3 and 7
+    leave lanes outside every span) and W up to the 16 rows a span may have.
+    257 rays x 3 spans leave the last warp tile, and the last block, short;
+    25,001 rays x 3 are more spans than one resident wave of warps takes, so
+    each warp walks over several tiles before its short last one. Where
+    every span fits, the kernel equals the fused form's kernel bit for bit;
+    the same spans at an xyz offset of one float (not 16-B aligned) give the
+    same values bit for bit; every call counts one launch of its row
+    type."""
     grid_dim = (29, 23, 17)
-    gen = torch.Generator(device=cuda_device).manual_seed(T * 31 + W)
+    gen = torch.Generator(device=cuda_device).manual_seed(T * 31 + W + n_rays)
     atlas = tfg.build_brick_atlas(torch.randn(grid_dim, generator=gen,
                                               device=cuda_device), dtype)
-    for name, xyz in _span_cases(grid_dim, 257, 3, T, gen,
+    for name, xyz in _span_cases(grid_dim, n_rays, 3, T, gen,
                                  cuda_device).items():
         n0 = bi.sample_density_brick_span.dtype_launches.get(_name(dtype), 0)
         got = bi.sample_density_brick_span(atlas, xyz, grid_dim, -3.0, W)
@@ -225,6 +234,12 @@ def test_span_form_matches_plain_version_on_card(cuda_device, dtype, T, W):
                                                       -3.0, W)
         torch.testing.assert_close(got, want, rtol=0, atol=1e-5,
                                    msg=lambda m: f"{name}: {m}")
+        buf = torch.empty(xyz.numel() + 1, device=cuda_device)
+        buf[1:] = xyz.view(-1)
+        torch.testing.assert_close(
+            bi.sample_density_brick_span(atlas, buf[1:].view(xyz.shape),
+                                         grid_dim, -3.0, W),
+            got, rtol=0, atol=0, msg=lambda m: f"{name}, unaligned xyz: {m}")
         if _max_runs(grid_dim, xyz) <= W:
             fused = bi.sample_density_brick(atlas, xyz.view(-1, 3), grid_dim,
                                             -3.0).view(got.shape)
