@@ -256,7 +256,20 @@ Phases, each printing JSON lines with their seconds:
              and decode seconds of one 968x1296 frame, the preprocessing,
              reader and fit seconds, the warm steps/s, the render rays/s and
              the launches, with the card's name and power limit;
-16. profile - only with ``--profile``: one more warm render of the 4 val
+16. codecs - host code, no kernel: one JPEG of each kind the JAX package
+             reads through PIL and the scene writer does not write
+             (RGB-coded, CMYK, YCCK, 4:4:0 and 4:1:1 chroma, a progressive
+             file cut where libjpeg block-smooths, sequential and
+             progressive arithmetic coding, lossless), 480x640, from
+             ``contrastive_lift_tpu_torch/testdata/codec_golden.npz``,
+             decoded by ``utils/jpeg.py`` with PIL's mode and shape and
+             pixels equal to PIL's (digest and corner); the RGB-coded and
+             the CMYK frame through ``data/panopli.py::_load_rgb`` at 60x80
+             equal to the JAX package's, and the CMYK frame greyed equal
+             to PIL's ``convert("L")`` (``inference/fidelity.py::
+             check_codecs``). Prints each kind's decode seconds (host
+             clock, median of 3) with the card's name and power limit;
+17. profile - only with ``--profile``: one more warm render of the 4 val
              frames on the dense path and one on the production path under
              ``torch.profiler``, each with its wall and device seconds, the
              idle share, device time by kernel kind (matmul, density kernel,
@@ -294,6 +307,7 @@ TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
 OPTIONS_GOLDEN = GOLDEN.with_name("r5b_options_golden.npz")
 DISTILLED_GOLDEN = GOLDEN.with_name("r5b_distilled_golden.npz")
 PREPROCESS_GOLDEN = GOLDEN.with_name("scannet_preprocess_golden.npz")
+CODEC_GOLDEN = GOLDEN.with_name("codec_golden.npz")
 # warm steps of train_r5b after step 1, and the sampler seed of those
 TRAIN_STEPS = 10
 DISTILLED_STEPS = 3
@@ -2208,6 +2222,32 @@ def phase_preprocess_scannet():
     return launches
 
 
+def phase_codecs():
+    """Every JPEG kind the JAX package reads through PIL and the scene
+    writer does not write, decoded by the port on the host and held to the
+    codec golden (see the module docstring)."""
+    import tempfile
+
+    import numpy as np
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+
+    card = card_line()
+    t_phase = time.perf_counter()
+    with np.load(CODEC_GOLDEN) as g:
+        gold = {k: g[k] for k in g.files}
+    runs = ROOT / "runs"
+    runs.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=runs) as tmp:
+        res = fid.check_codecs(gold, tmp)
+    emit({"phase": "codecs", "card": card, "pil": str(gold["pil"]), **res,
+          "seconds": time.perf_counter() - t_phase})
+    print("codecs: 480x640 decode seconds " + ", ".join(
+        f"{k} {v:.3f}" for k, v in res["decode_seconds"].items())
+        + f" (host clock, median of 3) on {card}", flush=True)
+    if res["failures"]:
+        raise AssertionError(f"codecs: {res['failures']}")
+
+
 def kernel_line(records, launches):
     """The ``kernels`` line: each entry point and row type, with its numbers
     on the render-chunk inputs (the dense main path's own) and its launches
@@ -2312,7 +2352,7 @@ def main() -> int:
         return 2
     for needed in (GOLDEN, PRODUCTION_GOLDEN, TRAIN_GOLDEN, STAGE_GOLDEN,
                    CLI_GOLDEN, TOOLS_GOLDEN, OPTIONS_GOLDEN, DISTILLED_GOLDEN,
-                   PREPROCESS_GOLDEN, ROOT / KERNEL_SOURCE):
+                   PREPROCESS_GOLDEN, CODEC_GOLDEN, ROOT / KERNEL_SOURCE):
         if not needed.exists():
             print(f"chip_smoke: {needed} is missing; run from a checkout of "
                   "the repository", file=sys.stderr)
@@ -2338,6 +2378,7 @@ def main() -> int:
     launches["distilled"] = phase_distilled_r5b(
         train_warm, train_peak, production_warm_rays_per_second)
     launches["preprocess"] = phase_preprocess_scannet()
+    phase_codecs()
     if args.profile:
         phase_profile()
     emit(kernel_line(records, launches))

@@ -34,7 +34,7 @@ import torch
 from ..utils import geometry as geo
 from ..utils.image import (resize_bilinear_chw, resize_lanczos_uint8,
                            resize_nearest)
-from ..utils.jpeg import jpeg_size, read_jpeg
+from ..utils.jpeg import jpeg_mode, jpeg_size, read_jpeg
 from ..utils.png import read_png
 from .base import FrameData, SceneData, SegmentationData
 from .common import numeric_stem_key
@@ -47,8 +47,9 @@ def _read_matrix_txt(path: Path) -> np.ndarray:
 
 
 def _load_rgb(path: Path, hw: Tuple[int, int]) -> np.ndarray:
-    """A JPEG frame, PIL-LANCZOS-resized to ``hw``, as float32 in [0, 1]."""
-    img = resize_lanczos_uint8(read_jpeg(path), hw)
+    """A JPEG frame, PIL-LANCZOS-resized to ``hw`` in its own mode (a CMYK
+    frame as CMYK), as float32 in [0, 1]; its first 3 channels."""
+    img = resize_lanczos_uint8(read_jpeg(path), hw, jpeg_mode(path))
     arr = np.asarray(img, np.float32) / 255.0
     return arr[..., :3]
 

@@ -16,8 +16,7 @@ from typing import Optional
 
 import numpy as np
 
-from ...utils.image import (image_palette, image_size, read_image,
-                             resize_pil)
+from ...utils.image import image_mode, image_size, read_image, resize_pil
 from .common import (SceneWriter, fold_semantics, numeric_stem_key,
                      renumber_instances, save_id_image)
 
@@ -57,9 +56,8 @@ def preprocess_generic(frames_dir, pose_path, intrinsics_path, output_dir,
     gt_sems, gt_insts = [], []
     for name, pose in zip(names, poses):
         frame = next(frames_dir.glob(f"{name}.*"))
-        # PIL resizes a palette frame's indices NEAREST
-        rgb = resize_pil(read_image(frame), (h, w),
-                         lanczos=image_palette(frame) is None)[..., :3]
+        rgb = resize_pil(read_image(frame), (h, w), lanczos=True,
+                         mode=image_mode(frame))[..., :3]
         sem = inst = None
         if gt_semantics_dir is not None:
             sem = resize_pil(read_image(Path(gt_semantics_dir) / f"{name}.png"),

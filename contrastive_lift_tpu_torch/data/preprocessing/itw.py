@@ -28,8 +28,8 @@ from typing import Optional
 import numpy as np
 
 from ...utils import geometry as geo
-from ...utils.image import (image_palette, image_size, read_image,
-                             to_grey_pil)
+from ...utils.image import (image_mode, image_palette, image_size,
+                             read_image, to_grey_pil)
 from ...utils.png import write_png
 from .common import blur_score, numeric_stem_key, select_keyframes
 
@@ -206,7 +206,8 @@ def preprocess_itw(transforms_path, frames_dir, output_dir,
     if keyframe_window > 1:
         # least-blurry frame per window, one frame in memory at a time (a
         # video capture has thousands)
-        scores = [blur_score(to_grey_pil(read_image(p), image_palette(p)))
+        scores = [blur_score(to_grey_pil(read_image(p), image_palette(p),
+                                         image_mode(p)))
                   for p in paths]
         keep = select_keyframes(scores, keyframe_window)
         names = [names[i] for i in keep]

@@ -27,7 +27,10 @@ from a seed, ``run_preprocess`` runs the port's ``preprocess_scannet`` on
 it, ``check_preprocess`` holds the tree and the port's reader to the
 golden's digests (``file_digest``, ``reader_record``), and
 ``train_preprocessed`` and ``render_preprocessed`` train and render on
-the result, as a user would after preprocessing.
+the result, as a user would after preprocessing. ``check_codecs`` holds
+the port's JPEG decoder, its PanopLi frame loader and its grey conversion
+to the codec golden (one file of each JPEG kind PIL reads, with PIL's
+pixels) and times each decode.
 """
 from __future__ import annotations
 
@@ -1671,3 +1674,72 @@ def render_preprocessed(ckpt, cfg, scene, device="cuda",
         torch.cuda.synchronize(dev)
     return {"maps": maps, "render_seconds": time.perf_counter() - t0,
             "rays": sum(len(f.rays) for f in scene.val_frames)}
+
+
+# ---------------------------------------------------------------------------
+# The codecs: every JPEG kind the JAX package reads through PIL and the
+# scene writer does not write, at a frame's size
+# ---------------------------------------------------------------------------
+
+CODEC_KINDS = ("rgb_coded", "cmyk", "ycck", "sampling_440", "sampling_411",
+               "progressive_smoothed", "arithmetic", "arithmetic_progressive",
+               "lossless")
+CODEC_HW = (480, 640)
+# the size the RGB-coded and the CMYK frame are loaded at, and the corner
+# of each decode kept whole beside its digest
+CODEC_LOAD_HW = (60, 80)
+CODEC_CROP = 64
+
+
+def check_codecs(golden: dict, tmp_dir, repeats: int = 3) -> dict:
+    """Decode each of the codec golden's files with the port on the host:
+    PIL's shape and mode, its pixels (``array_digest`` of the whole and the
+    top-left ``CODEC_CROP`` square equal), each kind's median decode
+    seconds over ``repeats``; then the RGB-coded and the CMYK frame as
+    files through ``data/panopli.py::_load_rgb`` at ``CODEC_LOAD_HW``
+    equal to the JAX package's, and the CMYK frame greyed
+    (``to_grey_pil``) equal to PIL's ``convert("L")``. Returns the seconds
+    and the failures."""
+    from ..data.panopli import _load_rgb
+    from ..utils.image import image_mode, read_image, to_grey_pil
+    from ..utils.jpeg import decode_jpeg
+
+    failures, seconds = [], {}
+    crop = (slice(0, CODEC_CROP), slice(0, CODEC_CROP))
+    for kind in CODEC_KINDS:
+        data = golden[f"{kind}_file"].tobytes()
+        times = []
+        for _ in range(repeats):
+            t0 = time.perf_counter()
+            got = decode_jpeg(data)
+            times.append(time.perf_counter() - t0)
+        seconds[kind] = float(np.median(times))
+        path = Path(tmp_dir) / f"{kind}.jpg"
+        path.write_bytes(data)
+        if image_mode(path) != str(golden[f"{kind}_mode"]):
+            failures.append(f"{kind}: mode {image_mode(path)}, PIL's "
+                            f"{golden[kind + '_mode']}")
+        if list(got.shape) != list(golden[f"{kind}_shape"]):
+            failures.append(f"{kind}: shape {got.shape}, PIL's "
+                            f"{tuple(golden[kind + '_shape'])}")
+        elif (array_digest(got) != str(golden[f"{kind}_digest"])
+              or not np.array_equal(got[crop], golden[f"{kind}_crop"])):
+            diff = np.abs(got[crop].astype(int)
+                          - golden[f"{kind}_crop"].astype(int))
+            failures.append(f"{kind}: pixels differ from PIL's (corner: "
+                            f"{int((diff > 0).sum())} values, up to "
+                            f"{int(diff.max())})")
+    for kind in ("rgb_coded", "cmyk"):
+        loaded = _load_rgb(Path(tmp_dir) / f"{kind}.jpg", CODEC_LOAD_HW)
+        if not np.array_equal(loaded, golden[f"{kind}_load_rgb"]):
+            failures.append(f"{kind}: _load_rgb differs from the JAX "
+                            "package's")
+    path = Path(tmp_dir) / "cmyk.jpg"
+    grey = to_grey_pil(read_image(path), mode=image_mode(path))
+    if (array_digest(grey) != str(golden["cmyk_grey_digest"])
+            or not np.array_equal(grey[crop], golden["cmyk_grey_crop"])):
+        failures.append("cmyk: the grey conversion differs from PIL's")
+    return {"decode_seconds": seconds, "hw": list(CODEC_HW),
+            "file_bytes": {k: int(golden[f"{k}_file"].size)
+                           for k in CODEC_KINDS},
+            "failures": failures}

@@ -12,15 +12,16 @@ panopli.py:41-57`` and ``data/mos.py``:
   images (Resample.c: the horizontal pass, then the vertical one, with
   coefficients in fixed point of ``PRECISION_BITS = 22`` and a uint8 clip
   between the passes; RGBA premultiplied by alpha around the resize as PIL
-  does);
+  does, CMYK not);
 - ``resize_bilinear_chw``: ``jax.image.resize(method="bilinear")`` of
   [..., h, w] float arrays, antialiased when it downscales, as one
   separable weight matrix per axis in torch with float32 accumulation;
 - ``to_grey_pil``: PIL's ``convert("L")`` (ITU-R 601-2 luma in 16-bit
-  fixed point);
+  fixed point; CMYK through PIL's CMYK -> RGB first);
 - ``read_image``: ``np.asarray(Image.open(path))`` for the PNG and JPEG
-  files the preprocessing scripts open, and ``image_palette``: the colours
-  of a palette PNG's indices.
+  files the preprocessing scripts open, ``image_palette``: the colours of
+  a palette PNG's indices, and ``image_mode``: PIL's mode of the file,
+  which tells a CMYK JPEG from an RGBA image of the same shape.
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from .jpeg import decode_jpeg, jpeg_size
+from .jpeg import decode_jpeg, jpeg_mode, jpeg_size
 from .png import decode_png, png_palette
 
 # Resample.c: 32 bits - 8 bits of sample - 2 bits of headroom
@@ -124,9 +125,11 @@ def _muldiv255(a, b):
     return ((tmp >> 8) + tmp) >> 8
 
 
-def resize_lanczos_uint8(arr: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
+def resize_lanczos_uint8(arr: np.ndarray, hw: Tuple[int, int],
+                         mode: Optional[str] = None) -> np.ndarray:
     """PIL ``LANCZOS`` resize of a uint8 [h, w] (L), [h, w, 2] (LA),
-    [h, w, 3] (RGB) or [h, w, 4] (RGBA) image to ``hw`` = (H, W)."""
+    [h, w, 3] (RGB) or [h, w, 4] (RGBA, or CMYK where ``mode`` is "CMYK")
+    image to ``hw`` = (H, W)."""
     arr = np.asarray(arr)
     if arr.dtype != np.uint8:
         raise ValueError(f"resize_lanczos_uint8 takes uint8, got {arr.dtype}")
@@ -134,7 +137,7 @@ def resize_lanczos_uint8(arr: np.ndarray, hw: Tuple[int, int]) -> np.ndarray:
     out_h, out_w = hw
     if (h, w) == (out_h, out_w):
         return arr.copy()
-    rgba = arr.ndim == 3 and arr.shape[2] in (2, 4)
+    rgba = arr.ndim == 3 and arr.shape[2] in (2, 4) and mode != "CMYK"
     if rgba:
         # PIL resizes LA and RGBA premultiplied, as La and RGBa
         # (Convert.c::rgbA2rgba)
@@ -196,17 +199,31 @@ def resize_bilinear_chw(arr, hw: Tuple[int, int]) -> np.ndarray:
     return x.cpu().numpy()
 
 
-def to_grey_pil(image: np.ndarray,
-                palette: Optional[np.ndarray] = None) -> np.ndarray:
+def cmyk_to_rgb(image: np.ndarray) -> np.ndarray:
+    """PIL's ``convert("RGB")`` of a CMYK [h, w, 4] uint8 image
+    (Convert.c::cmyk2rgb: each of R, G, B is (255 - K) - (C or M or Y) *
+    (255 - K) / 255, the product rounded as MULDIV255)."""
+    cmyk = np.asarray(image).astype(np.int64)
+    nk = 255 - cmyk[..., 3:]
+    return np.clip(nk - _muldiv255(cmyk[..., :3], nk), 0, 255).astype(
+        np.uint8)
+
+
+def to_grey_pil(image: np.ndarray, palette: Optional[np.ndarray] = None,
+                mode: Optional[str] = None) -> np.ndarray:
     """PIL's ``convert("L")`` of a uint8 image: RGB and RGBA through
     Convert.c's L24, (19595 R + 38470 G + 7471 B + 0x8000) >> 16 (alpha
     ignored); grey returned as is, bool (mode 1) as 0 and 255, uint16 grey
     (I;16) clipped to 255, and grey + alpha without its alpha. With
     ``palette`` ([N, 3], ``image_palette``), ``image`` holds its indices
-    (PIL's mode P), converted through their colours as Convert.c's p2l."""
+    (PIL's mode P), converted through their colours as Convert.c's p2l.
+    With ``mode`` "CMYK" (``image_mode``), a [h, w, 4] image is CMYK, which
+    PIL converts to RGB first (``cmyk_to_rgb``)."""
     image = np.asarray(image)
     if palette is not None:
         image = np.asarray(palette)[image]
+    if mode == "CMYK":
+        image = cmyk_to_rgb(image)
     if image.ndim == 2:
         if image.dtype == np.bool_:
             return image.astype(np.uint8) * 255
@@ -258,6 +275,26 @@ def read_image(path) -> np.ndarray:
     raise _format_error(path, data)
 
 
+# PIL's mode of a PNG by (colour type, bit depth): grey 1-bit as mode 1,
+# 16-bit as I;16, 16-bit colour as 8-bit, 16-bit grey + alpha as RGBA
+_PNG_MODES = {(0, 1): "1", (0, 16): "I;16", (4, 16): "RGBA"}
+_PNG_COLOUR_MODES = {0: "L", 2: "RGB", 3: "P", 4: "LA", 6: "RGBA"}
+
+
+def image_mode(path) -> str:
+    """PIL's mode of a PNG or JPEG file (``Image.open(path).mode``), from
+    its header: what ``read_image``'s array is (a [h, w, 4] array is RGBA,
+    or CMYK from a four-component JPEG)."""
+    with open(path, "rb") as f:
+        head = f.read(26)
+    if head[:8] == b"\x89PNG\r\n\x1a\n":
+        depth, colour = head[24], head[25]
+        return _PNG_MODES.get((colour, depth), _PNG_COLOUR_MODES[colour])
+    if head[:2] == b"\xff\xd8":
+        return jpeg_mode(path)
+    raise _format_error(path, head)
+
+
 def image_palette(path) -> Optional[np.ndarray]:
     """The [N, 3] uint8 colours of a palette PNG, whose ``read_image`` gives
     the indices (PIL's mode P, which PIL resizes NEAREST whatever filter it
@@ -266,20 +303,19 @@ def image_palette(path) -> Optional[np.ndarray]:
     return png_palette(data) if data[:8] == b"\x89PNG\r\n\x1a\n" else None
 
 
-def resize_pil(image: np.ndarray, hw: Tuple[int, int],
-               lanczos: bool) -> np.ndarray:
-    """``Image.fromarray(image).resize(hw[::-1], LANCZOS or NEAREST)`` for
-    the images ``read_image`` gives: a copy at the same size; NEAREST for
-    every dtype (and for bool, PIL's mode 1, which PIL never filters);
-    LANCZOS for uint8 grey, LA, RGB and RGBA. A palette image's indices
-    are not grey: PIL resizes mode P NEAREST, so pass ``lanczos=False``
-    where ``image_palette`` is not None."""
+def resize_pil(image: np.ndarray, hw: Tuple[int, int], lanczos: bool,
+               mode: Optional[str] = None) -> np.ndarray:
+    """``Image.open(path).resize(hw[::-1], LANCZOS or NEAREST)`` for the
+    images ``read_image`` gives, ``mode`` being the file's (``image_mode``):
+    a copy at the same size; NEAREST for every dtype (and for bool, PIL's
+    mode 1, and a palette image's indices, mode P, which PIL never
+    filters); LANCZOS for uint8 grey, LA, RGB, RGBA and CMYK."""
     image = np.asarray(image)
     if tuple(image.shape[:2]) == tuple(hw):
         return image.copy()
-    if not lanczos or image.dtype == np.bool_:
+    if not lanczos or image.dtype == np.bool_ or mode == "P":
         return resize_nearest(image, hw)
     if image.dtype != np.uint8:
         raise ValueError(f"LANCZOS resize of {image.dtype} images is not "
                          "ported (the port resizes uint8 ones)")
-    return resize_lanczos_uint8(image, hw)
+    return resize_lanczos_uint8(image, hw, mode)

@@ -1,29 +1,46 @@
 """A JPEG decoder and a baseline JPEG encoder in numpy: the port's stand-in
 for PIL's JPEG codec, which the card's machine does not have.
 
-The decoder reads baseline, extended sequential and progressive Huffman
-files (SOF0, SOF1, SOF2) of 8-bit precision with 1 component, or 3 YCbCr
-components sampled 4:4:4, 4:2:2 or 4:2:0, of any size, with or without
-restart intervals: what the repository's scene writer stores
-(``data/preprocessing/common.py::SceneWriter``) and what users' frames
-are. It follows libjpeg-turbo (API 6.2), which PIL decodes with, so that
-its pixels are PIL's:
+The decoder reads the JPEG files PIL reads, with the pixels PIL gives
+(``np.asarray(Image.open(f))``). PIL decodes with libjpeg-turbo (3.1, API
+6.2), and the decoder follows it:
 
-- progressive scans as ``jdphuff.c`` decodes them: DC first and refine
-  scans, AC first scans with end-of-band runs, AC refine scans with
-  correction bits (a file whose low-frequency AC bits are still unsent at
-  the end, which libjpeg would block-smooth, raises instead);
+- processes: baseline and extended sequential (SOF0, SOF1), progressive
+  (SOF2) and lossless (SOF3) Huffman files, and sequential (SOF9) and
+  progressive (SOF10) arithmetic-coded files with their DAC conditioning,
+  of 8-bit precision and any size, with or without restart intervals;
+- progressive scans as ``jdphuff.c`` and ``jdarith.c`` decode them (DC
+  first and refine scans, AC first scans with end-of-band runs, AC refine
+  scans), and ``jdcoefct.c::decompress_smooth_data``'s block smoothing of
+  files whose low-frequency AC bits are incomplete at the end;
+- the arithmetic decoder of ``jdarith.c`` (the Q-coder and the state table
+  of ITU-T T.81 Table D.2, the DC and AC statistics and their
+  conditioning, statistics reset at each restart);
+- lossless scans as ``jdlhuff.c``, ``jddiffct.c`` and ``jdlossls.c`` decode
+  them: predictors 1-7, the point transform, the first row of the scan
+  and of each restart interval predicted from 2^(P-Pt-1);
 - the "islow" integer inverse DCT of ``jidctint.c`` (13 constant bits,
   2 pass-1 bits) with its range-limiting table;
-- the "fancy" triangle upsampling of ``jdsample.c`` for h2v1 and h2v2
-  chroma (rounding biases 1/2 and 8/7), and plain replication where the
-  chroma is at most 2 samples wide, as ``jdsample.c`` chooses;
-- the fixed-point YCbCr -> RGB tables of ``jdcolor.c`` (16 scale bits).
+- the upsampling of ``jdsample.c`` for any integral sampling ratio: the
+  "fancy" triangles for h2v1, h1v2 and h2v2 (plain replication where h2
+  chroma is at most 2 samples wide, and in lossless files), replication
+  for the other ratios (4:1:1, h4v2, h1v4, ...);
+- the colour space of ``jdapimin.c::default_decompress_parms``, read from
+  the JFIF (APP0) and Adobe (APP14) markers and the component ids: 1
+  component is grey; 3 are YCbCr (through the fixed-point tables of
+  ``jdcolor.c``, 16 scale bits) or RGB (copied); 4 are CMYK or YCCK,
+  given as PIL gives mode CMYK (Adobe-inverted: 255 - the samples; YCCK as
+  ``ycck_cmyk_convert``'s output, inverted).
 
-Lossless, hierarchical and arithmetic-coded files raise
-``NotImplementedError`` naming the process. The Huffman decoding is a plain
-Python loop (about 1 s for a 968x1296 quality-95 frame on one host core);
-dequantisation, the IDCT, upsampling and colour conversion run in numpy.
+``decode_jpeg`` returns [H, W] uint8 (grey), [H, W, 3] (RGB) or [H, W, 4]
+(CMYK, whose mode ``jpeg_mode`` names: PIL resizes and greys it otherwise
+than RGBA). Hierarchical files (SOF5-SOF7, SOF13-SOF15), arithmetic-coded
+lossless files (SOF11), precisions other than 8 bits and heights given by a
+DNL marker raise ``NotImplementedError`` naming what they are; PIL refuses
+them all. The Huffman and arithmetic decoding are plain Python loops
+(about 1 s for a 968x1296 quality-95 Huffman frame on one host core);
+dequantisation, smoothing, the IDCT, upsampling and colour conversion run
+in numpy.
 
 ``encode_jpeg`` writes, byte for byte, the baseline file PIL writes with
 ``save(f, "JPEG", quality=q)``: libjpeg-turbo's compressor with the JFIF
@@ -49,14 +66,19 @@ NATURAL_ORDER = np.array([
     12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63])
-_UNSUPPORTED_SOF = {
-    0xC3: "lossless JPEG (SOF3)",
+# the frame headers the decoder reads: (entropy coding, process)
+_SOF = {0xC0: ("huffman", "sequential"), 0xC1: ("huffman", "sequential"),
+        0xC2: ("huffman", "progressive"), 0xC3: ("huffman", "lossless"),
+        0xC9: ("arithmetic", "sequential"),
+        0xCA: ("arithmetic", "progressive")}
+# ... and those libjpeg-turbo refuses as PIL drives it
+_REFUSED_SOF = {
     0xC5: "hierarchical JPEG (SOF5)", 0xC6: "hierarchical JPEG (SOF6)",
-    0xC7: "hierarchical JPEG (SOF7)", 0xC9: "arithmetic-coded JPEG (SOF9)",
-    0xCA: "arithmetic-coded JPEG (SOF10)", 0xCB: "arithmetic-coded JPEG "
-    "(SOF11)", 0xCC: "arithmetic-coded JPEG (DAC)", 0xCD: "arithmetic-coded "
-    "JPEG (SOF13)", 0xCE: "arithmetic-coded JPEG (SOF14)",
-    0xCF: "arithmetic-coded JPEG (SOF15)"}
+    0xC7: "hierarchical JPEG (SOF7)",
+    0xCB: "arithmetic-coded lossless JPEG (SOF11)",
+    0xCD: "hierarchical arithmetic-coded JPEG (SOF13)",
+    0xCE: "hierarchical arithmetic-coded JPEG (SOF14)",
+    0xCF: "hierarchical arithmetic-coded JPEG (SOF15)"}
 
 # jidctint.c: CONST_BITS 13, PASS1_BITS 2, FIX(x) = round(x * 2^13)
 _CONST_BITS, _PASS1_BITS = 13, 2
@@ -137,6 +159,18 @@ def _upsample_h2(plane: np.ndarray) -> np.ndarray:
     return out.astype(np.uint8)
 
 
+def _upsample_v2(plane: np.ndarray) -> np.ndarray:
+    """jdsample.c::h1v2_fancy_upsample on [h, w] samples -> [2h, w], with
+    the rows above the first and below the last replicated (jdmainct.c)."""
+    p = plane.astype(np.int32)
+    above = np.concatenate([p[:1], p[:-1]], axis=0)
+    below = np.concatenate([p[1:], p[-1:]], axis=0)
+    out = np.empty((2 * p.shape[0], p.shape[1]), np.int32)
+    out[0::2] = (3 * p + above + 1) >> 2
+    out[1::2] = (3 * p + below + 2) >> 2
+    return out.astype(np.uint8)
+
+
 def _upsample_h2v2(plane: np.ndarray) -> np.ndarray:
     """jdsample.c::h2v2_fancy_upsample on [h, w] samples -> [2h, 2w], with
     the rows above the first and below the last replicated (jdmainct.c)."""
@@ -153,6 +187,28 @@ def _upsample_h2v2(plane: np.ndarray) -> np.ndarray:
         out[v::2, 0] = (4 * col[:, 0] + 8) >> 4
         out[v::2, -1] = (4 * col[:, -1] + 7) >> 4
     return out.astype(np.uint8)
+
+
+def _upsample(plane, h: int, v: int, hmax: int, vmax: int,
+              fancy: bool) -> np.ndarray:
+    """jdsample.c::jinit_upsampler's choice for a component sampled h x v
+    of hmax x vmax: the fancy triangles where ``fancy`` (not in lossless
+    files, whose DCT size is 1) and the ratio is 2 across (the component
+    more than 2 samples wide), 2 down, or both (as wide), else integral
+    replication (``h2v1_upsample``, ``h2v2_upsample``, ``int_upsample``).
+    Non-integral ratios raise, as libjpeg does."""
+    if (h, v) == (hmax, vmax):
+        return plane
+    if hmax % h or vmax % v:
+        raise NotImplementedError(f"JPEG chroma sampling {h}x{v} of "
+                                  f"{hmax}x{vmax}")
+    fx, fy = hmax // h, vmax // v
+    if fancy:
+        if fx == 1 and fy == 2:
+            return _upsample_v2(plane)
+        if fx == 2 and fy in (1, 2) and plane.shape[1] > 2:
+            return _upsample_h2(plane) if fy == 1 else _upsample_h2v2(plane)
+    return np.repeat(np.repeat(plane, fx, axis=1), fy, axis=0)
 
 
 def _ycc_tables():
@@ -180,6 +236,44 @@ def ycc_to_rgb(y: np.ndarray, cb: np.ndarray, cr: np.ndarray) -> np.ndarray:
     g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
     b = y + _CB_B[cb]
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def _colour_space(ids, jfif: bool, adobe, lossless: bool) -> str:
+    """jdapimin.c::default_decompress_parms: the colour space of a frame
+    with component ``ids`` from the markers seen before its first scan
+    (``adobe``: the Adobe transform, None without the marker)."""
+    if len(ids) == 1:
+        return "L"
+    if len(ids) == 3:
+        if jfif:
+            return "YCbCr"
+        if adobe is not None:
+            return "RGB" if adobe == 0 else "YCbCr"
+        if tuple(ids) == (82, 71, 66):          # 'R', 'G', 'B'
+            return "RGB"
+        # ids 1, 2, 3 and any others: YCbCr, but RGB in a lossless file
+        return "RGB" if lossless else "YCbCr"
+    if len(ids) == 4:
+        return "YCCK" if adobe not in (None, 0) else "CMYK"
+    raise NotImplementedError(f"JPEG with {len(ids)} components")
+
+
+def _pixels(planes, space: str) -> np.ndarray:
+    """The output PIL gives for full-size planes in ``space``: grey, RGB,
+    or CMYK through libjpeg's CMYK output and PIL's ``CMYK;I`` raw mode,
+    which inverts every channel."""
+    if space == "L":
+        return planes[0]
+    if space == "YCbCr":
+        return ycc_to_rgb(*planes)
+    if space == "RGB":
+        return np.stack(planes, axis=-1)
+    if space == "CMYK":
+        return 255 - np.stack(planes, axis=-1)
+    # jdcolor.c::ycck_cmyk_convert gives 255 - R, G, B (clamped) and K as
+    # it is; PIL inverts all four
+    return np.concatenate([ycc_to_rgb(*planes[:3]), 255 - planes[3][..., None]],
+                          axis=-1)
 
 
 class _Huffman:
@@ -269,28 +363,37 @@ def _split_scan(data: bytes, start: int):
             return segments, nxt
 
 
+def _joined(segments):
+    """The segments as one bit stream: (bit offset of each segment,
+    ``_windows`` of their concatenation)."""
+    bounds, data = [], bytearray()
+    for seg in segments:
+        bounds.append(len(data) * 8)
+        data += seg
+    return bounds, _windows(bytes(data))
+
+
+def _next_segment(bounds, index: int) -> int:
+    if index >= len(bounds):
+        raise ValueError("JPEG scan ends before its last restart interval")
+    return bounds[index]
+
+
 def _decode_scan(segments, offsets, blocks, restart: int):
-    """Huffman-decode one scan into the components' coefficient stores, in
-    natural order. ``blocks`` lists the blocks of an MCU as (coefficient
-    store, DC table, AC table, index of the component in the scan), and
-    ``offsets[m]`` the block index in its store of each of MCU m's blocks.
-    ``restart`` is the restart interval in MCUs (0: none)."""
+    """Huffman-decode one sequential scan into the components' coefficient
+    stores, in natural order. ``blocks`` lists the blocks of an MCU as
+    (coefficient store, DC table, AC table, index of the component in the
+    scan), and ``offsets[m]`` the block index in its store of each of MCU
+    m's blocks. ``restart`` is the restart interval in MCUs (0: none)."""
     natural = NATURAL_ORDER.tolist()
     n_comp = max(b[3] for b in blocks) + 1
     preds = [0] * n_comp
-    seg_bounds, data = [], bytearray()
-    for seg in segments:
-        seg_bounds.append(len(data) * 8)
-        data += seg
-    win = _windows(bytes(data))
+    seg_bounds, win = _joined(segments)
     seg_index, pos = 0, 0
     for m in range(len(offsets)):
         if restart and m and m % restart == 0:
             seg_index += 1
-            if seg_index >= len(seg_bounds):
-                raise ValueError("JPEG scan ends before its last restart "
-                                 "interval")
-            pos = seg_bounds[seg_index]
+            pos = _next_segment(seg_bounds, seg_index)
             preds = [0] * n_comp
         for (store, dc, ac, ci), off in zip(blocks, offsets[m]):
             base = off * 64
@@ -354,183 +457,6 @@ def _decode_scan(segments, offsets, blocks, restart: int):
                     break
 
 
-def decode_jpeg(data: bytes) -> np.ndarray:
-    """Decode a baseline, extended sequential or progressive Huffman JPEG
-    byte string -> [H, W] uint8 (1 component) or [H, W, 3] uint8 RGB (3
-    components, YCbCr)."""
-    if data[:2] != b"\xff\xd8":
-        raise ValueError("not a JPEG file (no SOI marker)")
-    quant, dc_tables, ac_tables = {}, {}, {}
-    frame, comps, restart, progressive = None, [], 0, False
-    pos = 2
-    while pos < len(data):
-        if data[pos] != 0xFF:
-            raise ValueError(f"JPEG: expected a marker at byte {pos}")
-        marker = data[pos + 1]
-        if marker == 0xFF:
-            pos += 1
-            continue
-        pos += 2
-        if marker == 0xD9:
-            break
-        if marker in (0x01,) or 0xD0 <= marker <= 0xD7:
-            continue
-        length = struct.unpack(">H", data[pos:pos + 2])[0]
-        seg = data[pos + 2:pos + length]
-        pos += length
-        if marker in _UNSUPPORTED_SOF:
-            raise NotImplementedError(_UNSUPPORTED_SOF[marker])
-        if marker == 0xDB:
-            i = 0
-            while i < len(seg):
-                pq, tq = seg[i] >> 4, seg[i] & 15
-                if pq:
-                    vals = struct.unpack(">64H", seg[i + 1:i + 129])
-                    i += 129
-                else:
-                    vals = tuple(seg[i + 1:i + 65])
-                    i += 65
-                table = np.zeros(64, np.int64)
-                table[NATURAL_ORDER] = vals
-                quant[tq] = table
-        elif marker == 0xC4:
-            i = 0
-            while i < len(seg):
-                tc, th = seg[i] >> 4, seg[i] & 15
-                counts = list(seg[i + 1:i + 17])
-                n = sum(counts)
-                table = _Huffman(counts, list(seg[i + 17:i + 17 + n]))
-                (ac_tables if tc else dc_tables)[th] = table
-                i += 17 + n
-        elif marker in (0xC0, 0xC1, 0xC2):
-            precision, height, width, n = struct.unpack(">BHHB", seg[:6])
-            if precision != 8:
-                raise NotImplementedError(f"{precision}-bit JPEG precision")
-            if height == 0:
-                raise NotImplementedError("JPEG height given by a DNL marker")
-            frame = (height, width)
-            progressive = marker == 0xC2
-            comps = [{"id": seg[6 + 3 * c], "h": seg[7 + 3 * c] >> 4,
-                      "v": seg[7 + 3 * c] & 15, "tq": seg[8 + 3 * c]}
-                     for c in range(n)]
-            if progressive:
-                for comp in comps:
-                    _allocate(frame, comps, comp)
-        elif marker == 0xDD:
-            restart = struct.unpack(">H", seg[:2])[0]
-        elif marker == 0xDA:
-            if frame is None:
-                raise ValueError("JPEG: scan before the frame header")
-            pos = _read_scan(data, pos, seg, frame, comps, dc_tables,
-                             ac_tables, restart, progressive)
-        # APPn, COM and anything else with a length: skipped
-    if frame is None:
-        raise ValueError("JPEG: no frame header")
-    if progressive:
-        _refuse_block_smoothing(comps)
-    return _reconstruct(frame, comps, quant)
-
-
-def _geometry(frame, comps):
-    """(hmax, vmax, MCUs across, MCUs down) of the frame."""
-    height, width = frame
-    hmax = max(c["h"] for c in comps)
-    vmax = max(c["v"] for c in comps)
-    return (hmax, vmax, -(-width // (8 * hmax)), -(-height // (8 * vmax)))
-
-
-def _allocate(frame, comps, comp) -> None:
-    """The component's coefficient store over the whole MCU grid, and the
-    point transform each coefficient was last refined to (jdinput.c's
-    ``coef_bits``: -1 until a scan sends it)."""
-    _, _, mcux, mcuy = _geometry(frame, comps)
-    comp["blocks"] = (mcuy * comp["v"], mcux * comp["h"])
-    comp["store"] = array("i", bytes(4 * 64 * comp["blocks"][0]
-                                     * comp["blocks"][1]))
-    comp["coef_bits"] = [-1] * 64
-
-
-# libjpeg-turbo's jdcoefct.c::SAVED_COEFS: block smoothing looks at the DC
-# and the first 9 AC coefficients (zig-zag order)
-_SMOOTHED_COEFS = 10
-
-
-def _refuse_block_smoothing(comps) -> None:
-    """jdcoefct.c::smoothing_ok: libjpeg smooths the blocks of a progressive
-    file whose low-frequency AC coefficients are still unsent or unrefined
-    at output time (every component's DC seen). The port does not, so it
-    refuses such a file rather than give other pixels."""
-    bits = [c["coef_bits"] for c in comps]
-    if all(b[0] >= 0 for b in bits) and any(
-            b[k] != 0 for b in bits for k in range(1, _SMOOTHED_COEFS)):
-        raise NotImplementedError(
-            "progressive JPEG with incomplete low-frequency AC coefficients "
-            "(libjpeg's block smoothing)")
-
-
-def _read_scan(data, pos, header, frame, comps, dc_tables, ac_tables,
-               restart, progressive) -> int:
-    """Decode the scan whose SOS header is ``header`` into the components'
-    coefficient stores; returns the offset of the marker after the scan."""
-    height, width = frame
-    hmax, vmax, mcux, mcuy = _geometry(frame, comps)
-    n = header[0]
-    by_id = {c["id"]: (i, c) for i, c in enumerate(comps)}
-    ss, se = header[1 + 2 * n], header[2 + 2 * n]
-    ah, al = header[3 + 2 * n] >> 4, header[3 + 2 * n] & 15
-    if not progressive and (ss != 0 or se != 63):
-        raise ValueError("JPEG: spectral selection in a sequential scan")
-    if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
-                        or (ss > 0 and n != 1)):
-        raise ValueError(f"JPEG: bad progressive scan Ss={ss} Se={se} "
-                         f"with {n} components")
-    scan = []
-    for k in range(n):
-        ci, comp = by_id[header[1 + 2 * k]]
-        td, ta = header[2 + 2 * k] >> 4, header[2 + 2 * k] & 15
-        # a scan reads only the tables it uses
-        dc = dc_tables.get(td) if ss == 0 and ah == 0 else None
-        ac = ac_tables.get(ta) if se > 0 and (ah == 0 or progressive) else None
-        if (ss == 0 and ah == 0 and dc is None) or (se > 0 and ac is None):
-            raise ValueError("JPEG: scan uses an undefined Huffman table")
-        scan.append((ci, comp, dc, ac))
-    for ci, comp, _, _ in scan:
-        if "store" not in comp:
-            _allocate(frame, comps, comp)
-    if n == 1:
-        # non-interleaved: one block per MCU over the component's own size
-        ci, comp, dc, ac = scan[0]
-        bw = -(-(-(-width * comp["h"] // hmax)) // 8)
-        bh = -(-(-(-height * comp["v"] // vmax)) // 8)
-        stride = comp["blocks"][1]
-        offsets = [(y * stride + x,) for y in range(bh) for x in range(bw)]
-        blocks = [(comp["store"], dc, ac, 0)]
-    else:
-        blocks, rel = [], []
-        for k, (ci, comp, dc, ac) in enumerate(scan):
-            stride = comp["blocks"][1]
-            for v in range(comp["v"]):
-                for h in range(comp["h"]):
-                    blocks.append((comp["store"], dc, ac, k))
-                    rel.append((k, v, h, stride))
-        offsets = []
-        for my in range(mcuy):
-            for mx in range(mcux):
-                offsets.append(tuple(
-                    (my * scan[k][1]["v"] + v) * stride
-                    + mx * scan[k][1]["h"] + h
-                    for k, v, h, stride in rel))
-    segments, end = _split_scan(data, pos)
-    if progressive:
-        _decode_progressive(segments, offsets, blocks, restart,
-                            ss, se, ah, al)
-        for _, comp, _, _ in scan:
-            comp["coef_bits"][ss:se + 1] = [al] * (se + 1 - ss)
-    else:
-        _decode_scan(segments, offsets, blocks, restart)
-    return end
-
-
 def _decode_progressive(segments, offsets, blocks, restart, ss, se, ah, al):
     """Huffman-decode one progressive scan (jdphuff.c): DC first or refine
     (``ss`` 0), AC first with end-of-band runs, or AC refine with
@@ -539,11 +465,7 @@ def _decode_progressive(segments, offsets, blocks, restart, ss, se, ah, al):
     natural = NATURAL_ORDER.tolist()
     n_comp = max(b[3] for b in blocks) + 1
     preds = [0] * n_comp
-    seg_bounds, data = [], bytearray()
-    for seg in segments:
-        seg_bounds.append(len(data) * 8)
-        data += seg
-    win = _windows(bytes(data))
+    seg_bounds, win = _joined(segments)
     seg_index, pos, eobrun = 0, 0, 0
     p1, m1 = 1 << al, -1 << al
 
@@ -577,10 +499,7 @@ def _decode_progressive(segments, offsets, blocks, restart, ss, se, ah, al):
     for m in range(len(offsets)):
         if restart and m and m % restart == 0:
             seg_index += 1
-            if seg_index >= len(seg_bounds):
-                raise ValueError("JPEG scan ends before its last restart "
-                                 "interval")
-            pos = seg_bounds[seg_index]
+            pos = _next_segment(seg_bounds, seg_index)
             preds = [0] * n_comp
             eobrun = 0
         for (store, dc, ac, ci), off in zip(blocks, offsets[m]):
@@ -655,73 +574,837 @@ def _decode_progressive(segments, offsets, blocks, restart, ss, se, ah, al):
                     eobrun -= 1
 
 
-def _reconstruct(frame, comps, quant) -> np.ndarray:
-    """Dequantise, inverse-DCT, upsample and colour-convert."""
-    height, width = frame
-    hmax, vmax, _, _ = _geometry(frame, comps)
-    planes = []
+# ---------------------------------------------------------------------------
+# Arithmetic decoding (jdarith.c)
+# ---------------------------------------------------------------------------
+
+# ITU-T T.81 Table D.2, (Qe, Next_Index_LPS, Next_Index_MPS, Switch_MPS)
+# for states 0-112, and state 113: the fixed probability 0.5 (T.851) that
+# the AC signs and the refinement bits use
+_QE_TABLE = [
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0),
+    (0x080B, 18, 4, 0), (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0),
+    (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0), (0x0036, 30, 9, 0),
+    (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1),
+    (0x3F25, 36, 16, 0), (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0),
+    (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0), (0x0CEF, 43, 21, 0),
+    (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0),
+    (0x01B1, 54, 28, 0), (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0),
+    (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0), (0x0068, 62, 33, 0),
+    (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0),
+    (0x2EF1, 67, 40, 0), (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0),
+    (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0), (0x1177, 73, 45, 0),
+    (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0),
+    (0x04DE, 50, 52, 0), (0x040F, 50, 53, 0), (0x0363, 51, 54, 0),
+    (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0), (0x01F8, 54, 57, 0),
+    (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0),
+    (0x008F, 61, 32, 0), (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0),
+    (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0), (0x2FE8, 83, 69, 0),
+    (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0),
+    (0x119C, 74, 76, 0), (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0),
+    (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0), (0x5832, 80, 81, 1),
+    (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0),
+    (0x2516, 86, 71, 0), (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0),
+    (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0), (0x3824, 99, 93, 0),
+    (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0),
+    (0x3C3D, 104, 100, 0), (0x375E, 99, 93, 0), (0x5231, 105, 102, 0),
+    (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0), (0x415E, 103, 99, 0),
+    (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1),
+    (0x5522, 112, 109, 0), (0x59EB, 112, 111, 1),
+    (0x5A1D, 113, 113, 0)]
+# ... packed as jaricom.c packs it: Qe << 16 | Next_Index_MPS << 8 |
+# Switch_MPS << 7 | Next_Index_LPS
+ARITH_TABLE = [(qe << 16) | (nmps << 8) | (switch << 7) | nlps
+               for qe, nlps, nmps, switch in _QE_TABLE]
+_FIXED_STATE = 113
+# jdarith.c: statistics bins of a DC and an AC conditioning table
+_DC_STAT_BINS, _AC_STAT_BINS = 64, 256
+
+
+def _arith_decoder(segment: bytes):
+    """jdarith.c::arith_decode over one entropy-coded segment (zeros past
+    its end, as libjpeg supplies once it meets a marker): returns
+    ``decode(stats, i)``, the next decision in statistics bin
+    ``stats[i]`` (a bytearray of states with the MPS in bit 7), which it
+    updates."""
+    table = ARITH_TABLE
+    n = len(segment)
+    pos, c, a, ct = 0, 0, 0, -16      # ct -16: read 2 bytes to fill C
+
+    def decode(st, i):
+        nonlocal pos, c, a, ct
+        while a < 0x8000:
+            ct -= 1
+            if ct < 0:
+                c = (c << 8) | (segment[pos] if pos < n else 0)
+                pos += 1
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000     # 2 initial bytes: A = 0x10000 below
+            a <<= 1
+        sv = st[i]
+        q = table[sv & 0x7F]
+        qe = q >> 16
+        temp = a - qe
+        a = temp
+        temp <<= ct
+        if c >= temp:
+            c -= temp
+            if a < qe:
+                a = qe
+                st[i] = (sv & 0x80) ^ ((q >> 8) & 0xFF)     # after an MPS
+            else:
+                a = qe
+                st[i] = (sv & 0x80) ^ (q & 0xFF)            # after an LPS
+                sv ^= 0x80
+        elif a < 0x8000:
+            if a < qe:
+                st[i] = (sv & 0x80) ^ (q & 0xFF)
+                sv ^= 0x80
+            else:
+                st[i] = (sv & 0x80) ^ ((q >> 8) & 0xFF)
+        return sv >> 7
+
+    return decode
+
+
+def _short(v: int) -> int:
+    """The JCOEF (int16) libjpeg stores for ``v``."""
+    v &= 0xFFFF
+    return v - 0x10000 if v >= 0x8000 else v
+
+
+def _decode_arith(segments, offsets, blocks, restart, conditioning,
+                  progressive, ss, se, ah, al):
+    """Arithmetic-decode one scan (jdarith.c: ``decode_mcu`` for a
+    sequential scan, ``decode_mcu_DC_first``, ``decode_mcu_AC_first``,
+    ``decode_mcu_DC_refine`` and ``decode_mcu_AC_refine`` for a
+    progressive one). ``blocks`` and ``offsets`` as ``_decode_scan``'s,
+    the tables in ``blocks`` being conditioning table numbers;
+    ``conditioning`` holds the DAC values ({"dc": {t: (L, U)}, "ac": {t:
+    K}}, defaults L 0, U 1, K 5). The statistics are reset at the start
+    and at each restart."""
+    natural = NATURAL_ORDER.tolist()
+    n_comp = max(b[3] for b in blocks) + 1
+    dc_first = not progressive or (ss == 0 and ah == 0)
+    uses_ac = not progressive or ss > 0
+    dc_tbls = sorted({b[1] for b in blocks}) if dc_first else []
+    ac_tbls = sorted({b[2] for b in blocks}) if uses_ac else []
+    dc_cond = {t: conditioning["dc"].get(t, (0, 1)) for t in dc_tbls}
+    ac_k = {t: conditioning["ac"].get(t, 5) for t in ac_tbls}
+    last_k = 63 if not progressive else se
+    first_k = 1 if not progressive else ss
+    p1, m1 = 1 << al, -1 << al
+    fixed = bytearray([_FIXED_STATE])
+    seg_index = 0
+
+    def reset():
+        stats = ({t: bytearray(_DC_STAT_BINS) for t in dc_tbls},
+                 {t: bytearray(_AC_STAT_BINS) for t in ac_tbls})
+        return stats, [0] * n_comp, [0] * n_comp
+
+    decode = _arith_decoder(segments[0])
+    (dc_stats, ac_stats), last_dc, dc_context = reset()
+
+    def dc_diff(st, ci, tbl):
+        """Figures F.19-F.24: the next DC difference of component ``ci``."""
+        base = dc_context[ci]
+        if not decode(st, base):
+            dc_context[ci] = 0
+            return 0
+        sign = decode(st, base + 1)
+        k = base + 2 + sign
+        m = decode(st, k)
+        if m:
+            k = 20
+            while decode(st, k):
+                m <<= 1
+                if m == 0x8000:
+                    raise ValueError("corrupt JPEG data: arithmetic "
+                                     "magnitude overflow")
+                k += 1
+        lo, hi = dc_cond[tbl]
+        if m < (1 << lo) >> 1:
+            dc_context[ci] = 0
+        elif m > (1 << hi) >> 1:
+            dc_context[ci] = 12 + sign * 4
+        else:
+            dc_context[ci] = 4 + sign * 4
+        v = m
+        k += 14
+        m >>= 1
+        while m:
+            if decode(st, k):
+                v |= m
+            m >>= 1
+        v += 1
+        return -v if sign else v
+
+    def ac_value(st, k, s, kx):
+        """Figures F.21-F.24 for an AC coefficient at zig-zag ``k`` whose
+        statistics start at bin ``s``: the coefficient."""
+        sign = decode(fixed, 0)
+        s += 2
+        m = decode(st, s)
+        if m and decode(st, s):
+            m <<= 1
+            s = 189 if k <= kx else 217
+            while decode(st, s):
+                m <<= 1
+                if m == 0x8000:
+                    raise ValueError("corrupt JPEG data: arithmetic "
+                                     "magnitude overflow")
+                s += 1
+        v = m
+        s += 14
+        m >>= 1
+        while m:
+            if decode(st, s):
+                v |= m
+            m >>= 1
+        v += 1
+        return -v if sign else v
+
+    for m in range(len(offsets)):
+        if restart and m and m % restart == 0:
+            seg_index += 1
+            if seg_index >= len(segments):
+                raise ValueError("JPEG scan ends before its last restart "
+                                 "interval")
+            decode = _arith_decoder(segments[seg_index])
+            (dc_stats, ac_stats), last_dc, dc_context = reset()
+        for (store, td, ta, ci), off in zip(blocks, offsets[m]):
+            base = off * 64
+            if dc_first and ss == 0:
+                last_dc[ci] = (last_dc[ci] + dc_diff(dc_stats[td], ci, td)) \
+                    & 0xFFFF
+                store[base] = _short(last_dc[ci] << al)
+            elif ss == 0:
+                if decode(fixed, 0):
+                    store[base] |= p1
+            if not uses_ac:
+                continue
+            st, kx = ac_stats[ta], ac_k[ta]
+            if progressive and ah:
+                # AC refine: the previous stage's end of block first
+                kex = se
+                while kex > 0 and not store[base + natural[kex]]:
+                    kex -= 1
+                k = ss
+                while k <= se:
+                    s = 3 * (k - 1)
+                    if k > kex and decode(st, s):
+                        break
+                    while True:
+                        at = base + natural[k]
+                        if store[at]:
+                            if decode(st, s + 2):
+                                store[at] += m1 if store[at] < 0 else p1
+                            break
+                        if decode(st, s + 1):
+                            store[at] = m1 if decode(fixed, 0) else p1
+                            break
+                        s += 3
+                        k += 1
+                        if k > se:
+                            raise ValueError("corrupt JPEG data: "
+                                             "arithmetic spectral overflow")
+                    k += 1
+                continue
+            k = first_k
+            while k <= last_k:
+                s = 3 * (k - 1)
+                if decode(st, s):
+                    break                      # end of block
+                while not decode(st, s + 1):
+                    s += 3
+                    k += 1
+                    if k > last_k:
+                        raise ValueError("corrupt JPEG data: arithmetic "
+                                         "spectral overflow")
+                v = ac_value(st, k, s, kx)
+                store[base + natural[k]] = _short(v << al)
+                k += 1
+
+
+# ---------------------------------------------------------------------------
+# Lossless decoding (jdlhuff.c, jddiffct.c, jdlossls.c)
+# ---------------------------------------------------------------------------
+
+def _decode_differences(segments, tables, n_mcu: int, restart: int):
+    """jdlhuff.c::decode_mcus over a lossless scan: the sample differences
+    of its ``n_mcu`` MCUs in order, ``tables`` giving the Huffman table of
+    each sample of an MCU (category 16 is 32768 with no extra bits)."""
+    seg_bounds, win = _joined(segments)
+    out = array("i", bytes(4 * n_mcu * len(tables)))
+    seg_index, pos, i = 0, 0, 0
+    lengths = [t.length for t in tables]
+    symbols = [t.symbol for t in tables]
+    for m in range(n_mcu):
+        if restart and m and m % restart == 0:
+            seg_index += 1
+            pos = _next_segment(seg_bounds, seg_index)
+        for length, symbol in zip(lengths, symbols):
+            top = win[pos] >> 16
+            n = length[top]
+            if not n:
+                raise ValueError("corrupt JPEG data: bad Huffman code")
+            s = symbol[top]
+            pos += n
+            if s:
+                if s == 16:
+                    out[i] = 32768
+                elif s > 16:
+                    raise ValueError("corrupt JPEG data: lossless "
+                                     f"category {s}")
+                else:
+                    r = win[pos] >> (32 - s)
+                    pos += s
+                    out[i] = r if r >= 1 << (s - 1) else r + 1 - (1 << s)
+            i += 1
+    return out
+
+
+def _undifference(diff: np.ndarray, psv: int, initial: int,
+                  first_rows) -> np.ndarray:
+    """jdlossls.c: samples from the differences [h, w] of one component,
+    modulo 2^16. Rows in ``first_rows`` are predicted from ``initial``
+    then from the left (``jpeg_undifference_first_row``); the others take
+    the row above for their first sample and predictor ``psv`` (1 Ra,
+    2 Rb, 3 Rc, 4 Ra + Rb - Rc, 5 Ra + ((Rb - Rc) >> 1), 6 Rb + ((Ra - Rc)
+    >> 1), 7 (Ra + Rb) >> 1) for the rest."""
+    mask = 0xFFFF
+    d = diff.astype(np.int64)
+    h, w = d.shape
+    out = np.empty((h, w), np.int64)
+    for r in range(h):
+        row = d[r]
+        if r in first_rows:
+            out[r] = (initial + np.cumsum(row)) & mask
+            continue
+        prev = out[r - 1]
+        x0 = (row[0] + prev[0]) & mask
+        if psv == 1:
+            out[r] = (prev[0] + np.cumsum(row)) & mask
+        elif psv == 2:
+            out[r] = (row + prev) & mask
+        elif psv == 3:
+            out[r, 0] = x0
+            out[r, 1:] = (row[1:] + prev[:-1]) & mask
+        elif psv in (4, 5):
+            # Ra enters additively: a running sum
+            step = prev[1:] - prev[:-1]
+            if psv == 5:
+                step >>= 1
+            out[r, 0] = x0
+            out[r, 1:] = (x0 + np.cumsum(row[1:] + step)) & mask
+        else:
+            x, vals = x0, [x0]
+            rl, pl = row.tolist(), prev.tolist()
+            for c in range(1, w):
+                if psv == 6:
+                    x = (rl[c] + pl[c] + ((x - pl[c - 1]) >> 1)) & mask
+                else:
+                    x = (rl[c] + ((x + pl[c]) >> 1)) & mask
+                vals.append(x)
+            out[r] = vals
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Block smoothing (jdcoefct.c::decompress_smooth_data)
+# ---------------------------------------------------------------------------
+
+# jdcoefct.c::SAVED_COEFS: block smoothing estimates the first 9 AC
+# coefficients (zig-zag 1-9) and looks at their coef_bits and the DC's
+_SMOOTHED_COEFS = 10
+
+
+def _grid(rows) -> np.ndarray:
+    return np.array(rows, np.int64)
+
+
+# the estimate of zig-zag coefficients 1-9 (AC01, AC10, AC20, AC11, AC02,
+# AC03, AC12, AC21, AC30) as weights over the 5x5 DC values around a block
+# (rows above to below, columns left to right), before Q00 / (Qk << 8):
+# where only DC is known (which also re-estimates the DC) ...
+_AC01 = _grid([[-1, -1, 0, 1, 1], [-3, 13, 0, -13, 3], [-3, 38, 0, -38, 3],
+               [-3, 13, 0, -13, 3], [-1, -1, 0, 1, 1]])
+_AC20 = _grid([[0, 0, 1, 0, 0], [0, 2, 7, 2, 0], [0, -5, -14, -5, 0],
+               [0, 2, 7, 2, 0], [0, 0, 1, 0, 0]])
+_AC11 = _grid([[-1, 0, 0, 0, 1], [0, 9, 0, -9, 0], [0, 0, 0, 0, 0],
+               [0, -9, 0, 9, 0], [1, 0, 0, 0, -1]])
+_AC03 = _grid([[0] * 5, [0, 1, 0, -1, 0], [0, 2, 0, -2, 0],
+               [0, 1, 0, -1, 0], [0] * 5])
+_AC12 = _grid([[0] * 5, [0, 1, -3, 1, 0], [0] * 5, [0, -1, 3, -1, 0],
+               [0] * 5])
+_DC_ONLY = np.stack([_AC01, _AC01.T, _AC20, _AC11, _AC20.T, _AC03, _AC12,
+                     _AC12.T, _AC03.T])
+_DC_ESTIMATE = _grid([[-2, -6, -8, -6, -2], [-6, 6, 42, 6, -6],
+                      [-8, 42, 152, 42, -8], [-6, 6, 42, 6, -6],
+                      [-2, -6, -8, -6, -2]])
+# ... and where some AC bits are known (zig-zag 1-5 only)
+_P01 = _grid([[0] * 5, [0] * 5, [-7, 50, 0, -50, 7], [0] * 5, [0] * 5])
+_P02 = _grid([[0] * 5, [0] * 5, [-1, 13, -24, 13, -1], [0] * 5, [0] * 5])
+_P11 = _grid([[0, -1, 0, 1, 0], [-1, 10, 0, -10, 1], [0] * 5,
+              [1, -10, 0, 10, -1], [0, 1, 0, -1, 0]])
+_WITH_AC = np.stack([_P01, _P01.T, _P02.T, _P11, _P02])
+
+
+def _smoothing_ok(comps) -> bool:
+    """jdcoefct.c::smoothing_ok at the output pass: every component's DC
+    seen and its DC and first 9 AC quantisers nonzero, and some AC
+    coefficient among the first 9 still short of full precision."""
+    useful = False
     for comp in comps:
-        if "store" not in comp:
-            raise ValueError(f"JPEG component {comp['id']} has no scan")
-        bh, bw = comp["blocks"]
-        coefs = np.frombuffer(comp["store"], np.int32).reshape(-1, 64)
-        pixels = idct_islow(coefs, quant[comp["tq"]])
-        plane = pixels.reshape(bh, bw, 8, 8).transpose(0, 2, 1, 3)
-        plane = plane.reshape(bh * 8, bw * 8)
-        # the component's own size (libjpeg's downsampled_width/height)
-        ch = -(-height * comp["v"] // vmax)
-        cw = -(-width * comp["h"] // hmax)
-        plane = plane[:ch, :cw]
-        if len(comps) > 1:
-            plane = _upsample(plane, hmax // comp["h"], vmax // comp["v"],
-                              (comp["h"], comp["v"], hmax, vmax))
-        planes.append(plane[:height, :width])
-    if len(comps) == 1:
-        return planes[0]
-    if len(comps) != 3:
-        raise NotImplementedError(f"JPEG with {len(comps)} components")
-    return ycc_to_rgb(*planes)
+        q = comp["qtable"]
+        bits = comp["coef_bits"]
+        if (q[NATURAL_ORDER[:_SMOOTHED_COEFS]] == 0).any() or bits[0] < 0:
+            return False
+        useful |= any(b != 0 for b in bits[1:_SMOOTHED_COEFS])
+    return useful
 
 
-def _upsample(plane, fx: int, fy: int, factors) -> np.ndarray:
-    if (fx, fy) == (1, 1):
-        return plane
-    if (fx, fy) not in ((2, 1), (2, 2)) or any(
-            f * c != m for f, c, m in ((fx, factors[0], factors[2]),
-                                       (fy, factors[1], factors[3]))):
-        raise NotImplementedError(f"JPEG chroma sampling {factors[0]}x"
-                                  f"{factors[1]} of {factors[2]}x{factors[3]}")
-    if plane.shape[1] <= 2:
-        # jdsample.c replicates samples where the component is this narrow
-        return np.repeat(np.repeat(plane, fx, axis=1), fy, axis=0)
-    return _upsample_h2(plane) if fy == 1 else _upsample_h2v2(plane)
+def _dc_columns(width: int) -> np.ndarray:
+    """The block columns decompress_smooth_data reads as the 5 DC values
+    across (offsets -2..2) of each of ``width`` blocks: clamped to the
+    component's blocks."""
+    cols = np.arange(width)[:, None] + np.arange(-2, 3)[None, :]
+    return np.clip(cols, 0, width - 1)
 
 
-def read_jpeg(path) -> np.ndarray:
-    """The pixels of the JPEG file at ``path``, as ``np.array(Image.open(
-    path))`` gives them: [H, W] uint8 grey or [H, W, 3] uint8 RGB."""
-    return decode_jpeg(Path(path).read_bytes())
+def _dc_rows(height: int, v: int, imcu_rows: int) -> np.ndarray:
+    """The block rows decompress_smooth_data reads as the 5 DC values down
+    (offsets -2..2) of each of a component's ``height`` block rows (``v``
+    a row of MCUs, ``imcu_rows`` rows of MCUs). Its edge tests count the
+    last row of MCUs as having as many block rows as it really has, and
+    every earlier row as having that many too."""
+    out = []
+    for r in range(height):
+        imcu, b = divmod(r, v)
+        rows = v if imcu < imcu_rows - 1 else (height % v or v)
+        row, total = imcu * rows + b, rows * imcu_rows
+        prev = r - 1 if row > 0 else r
+        prev2 = r - 2 if row > 1 else prev
+        nxt = r + 1 if row < total - 1 else r
+        nxt2 = r + 2 if row < total - 2 else nxt
+        out.append([prev2, prev, r, nxt, nxt2])
+    return np.array(out, np.int64)
 
 
-def jpeg_size(path) -> tuple:
-    """(width, height) of the JPEG file at ``path``, read from its frame
-    header without decoding (as ``Image.open(path).size``)."""
-    data = Path(path).read_bytes()
+def _smooth(coefs: np.ndarray, bits, q: np.ndarray, v: int,
+            imcu_rows: int, height: int, width: int) -> np.ndarray:
+    """jdcoefct.c::decompress_smooth_data on one component: ``coefs``
+    [block rows, block columns, 64] (the whole MCU grid, natural order),
+    ``bits`` its coef_bits (zig-zag), ``q`` its quantisation table;
+    returns the [height, width] real blocks with the estimates in place of
+    the coefficients still zero and not known to full precision (and every
+    DC re-estimated where no AC bit is known)."""
+    dc = coefs[..., 0].astype(np.int64)
+    around = dc[_dc_rows(height, v, imcu_rows)[:, None, :, None],
+                _dc_columns(width)[None, :, None, :]]     # [h, w, 5, 5]
+    out = coefs[:height, :width].astype(np.int64)
+    q = q.astype(np.int64)
+    dc_only = all(b == -1 for b in bits[1:_SMOOTHED_COEFS])
+    kernels = _DC_ONLY if dc_only else _WITH_AC
+
+    def estimate(kernel, qk, al):
+        num = q[0] * np.einsum("hwij,ij->hw", around, kernel)
+        pred = ((qk << 7) + np.abs(num)) // (qk << 8)
+        if al > 0:
+            pred = np.minimum(pred, (1 << al) - 1)
+        return np.where(num >= 0, pred, -pred)
+
+    for k, kernel in enumerate(kernels, start=1):
+        at = NATURAL_ORDER[k]
+        if bits[k] != 0:
+            out[..., at] = np.where(out[..., at] == 0,
+                                    estimate(kernel, q[at], bits[k]),
+                                    out[..., at])
+    if dc_only:
+        out[..., 0] = estimate(_DC_ESTIMATE, q[0], 0)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# The decoder
+# ---------------------------------------------------------------------------
+
+class _Decoder:
+    """The state of one file's decoding: tables, frame, components, and the
+    markers that set its colour space."""
+
+    def __init__(self):
+        self.quant, self.dc_tables, self.ac_tables = {}, {}, {}
+        self.conditioning = {"dc": {}, "ac": {}}
+        self.restart = 0
+        self.frame = self.coding = self.process = None
+        self.comps = []
+        self.jfif, self.adobe, self.space = False, None, None
+
+    def marker(self, marker: int, seg: bytes) -> None:
+        """Read one marker segment other than SOS."""
+        if marker in _REFUSED_SOF:
+            raise NotImplementedError(_REFUSED_SOF[marker])
+        if marker == 0xDB:
+            i = 0
+            while i < len(seg):
+                pq, tq = seg[i] >> 4, seg[i] & 15
+                if pq:
+                    vals = struct.unpack(">64H", seg[i + 1:i + 129])
+                    i += 129
+                else:
+                    vals = tuple(seg[i + 1:i + 65])
+                    i += 65
+                table = np.zeros(64, np.int64)
+                table[NATURAL_ORDER] = vals
+                self.quant[tq] = table
+        elif marker == 0xC4:
+            i = 0
+            while i < len(seg):
+                tc, th = seg[i] >> 4, seg[i] & 15
+                counts = list(seg[i + 1:i + 17])
+                n = sum(counts)
+                table = _Huffman(counts, list(seg[i + 17:i + 17 + n]))
+                (self.ac_tables if tc else self.dc_tables)[th] = table
+                i += 17 + n
+        elif marker == 0xCC:
+            # jdmarker.c::get_dac
+            for i in range(0, len(seg) - 1, 2):
+                index, val = seg[i], seg[i + 1]
+                if index >= 32:
+                    raise ValueError(f"JPEG: bad DAC index {index}")
+                if index >= 16:
+                    self.conditioning["ac"][index - 16] = val
+                elif (val & 15) > (val >> 4):
+                    raise ValueError(f"JPEG: bad DAC value {val}")
+                else:
+                    self.conditioning["dc"][index] = (val & 15, val >> 4)
+        elif marker in _SOF:
+            self.start_frame(marker, seg)
+        elif marker == 0xDD:
+            self.restart = struct.unpack(">H", seg[:2])[0]
+        elif self.space is None and marker == 0xE0:
+            # jdmarker.c::examine_app0: at least 14 bytes, "JFIF\0"
+            self.jfif |= len(seg) >= 14 and seg[:5] == b"JFIF\0"
+        elif self.space is None and marker == 0xEE:
+            # jdmarker.c::examine_app14: at least 12 bytes, "Adobe"
+            if len(seg) >= 12 and seg[:5] == b"Adobe":
+                self.adobe = seg[11]
+        # other APPn, COM and anything else with a length: skipped
+
+    def start_frame(self, marker: int, seg: bytes) -> None:
+        """Read a frame header: size, process, components (refusing what
+        libjpeg-turbo refuses as PIL drives it)."""
+        precision, height, width, n = struct.unpack(">BHHB", seg[:6])
+        if precision != 8:
+            raise NotImplementedError(f"{precision}-bit JPEG precision")
+        if height == 0:
+            raise NotImplementedError("JPEG height given by a DNL marker")
+        self.frame = (height, width)
+        self.coding, self.process = _SOF[marker]
+        self.comps = [{"id": seg[6 + 3 * c], "h": seg[7 + 3 * c] >> 4,
+                       "v": seg[7 + 3 * c] & 15, "tq": seg[8 + 3 * c]}
+                      for c in range(n)]
+        if any(not (1 <= c["h"] <= 4 and 1 <= c["v"] <= 4)
+               for c in self.comps):
+            raise ValueError("JPEG: sampling factors outside 1-4")
+        if self.process == "progressive":
+            for comp in self.comps:
+                self.allocate(comp)
+
+    def geometry(self):
+        """(hmax, vmax, MCUs across, MCUs down) of the frame."""
+        height, width = self.frame
+        unit = 1 if self.process == "lossless" else 8
+        hmax = max(c["h"] for c in self.comps)
+        vmax = max(c["v"] for c in self.comps)
+        return (hmax, vmax, -(-width // (unit * hmax)),
+                -(-height // (unit * vmax)))
+
+    def size(self, comp):
+        """(rows, columns) of a component's own samples (libjpeg's
+        downsampled_height and downsampled_width)."""
+        height, width = self.frame
+        hmax, vmax, _, _ = self.geometry()
+        return -(-height * comp["v"] // vmax), -(-width * comp["h"] // hmax)
+
+    def allocate(self, comp) -> None:
+        """The component's coefficient store over the whole MCU grid, and
+        the point transform each coefficient was last refined to
+        (jdinput.c's ``coef_bits``: -1 until a scan sends it)."""
+        _, _, mcux, mcuy = self.geometry()
+        comp["blocks"] = (mcuy * comp["v"], mcux * comp["h"])
+        comp["store"] = array("i", bytes(4 * 64 * comp["blocks"][0]
+                                         * comp["blocks"][1]))
+        comp["coef_bits"] = [-1] * 64
+
+    def scan(self, header: bytes, segments) -> None:
+        """Decode the scan whose SOS header is ``header`` and whose
+        entropy-coded segments are ``segments``."""
+        if self.frame is None:
+            raise ValueError("JPEG: scan before the frame header")
+        if self.space is None:
+            # jdapimin.c::default_decompress_parms, at the first scan
+            self.space = _colour_space([c["id"] for c in self.comps],
+                                       self.jfif, self.adobe,
+                                       self.process == "lossless")
+            if self.process == "lossless" and self.space in ("YCbCr", "YCCK"):
+                # libjpeg-turbo converts no colour in a lossless file
+                raise NotImplementedError(f"lossless JPEG in {self.space}")
+        n = header[0]
+        by_id = {c["id"]: c for c in self.comps}
+        ss, se = header[1 + 2 * n], header[2 + 2 * n]
+        ah, al = header[3 + 2 * n] >> 4, header[3 + 2 * n] & 15
+        scan = []
+        for k in range(n):
+            if header[1 + 2 * k] not in by_id:
+                raise ValueError(f"JPEG: scan names component "
+                                 f"{header[1 + 2 * k]}, not in the frame")
+            comp = by_id[header[1 + 2 * k]]
+            if "qtable" not in comp and self.process != "lossless":
+                # jdinput.c::latch_quant_tables, at the component's first
+                # scan
+                if comp["tq"] not in self.quant:
+                    raise ValueError(f"JPEG: quantisation table "
+                                     f"{comp['tq']} is not defined")
+                comp["qtable"] = self.quant[comp["tq"]].copy()
+            scan.append((comp, header[2 + 2 * k] >> 4,
+                         header[2 + 2 * k] & 15))
+        if sum(c["h"] * c["v"] for c, _, _ in scan) > 10 and n > 1:
+            raise ValueError("JPEG: more than 10 blocks in an MCU")
+        if self.process == "lossless":
+            self.lossless_scan(segments, scan, ss, se, ah, al)
+        else:
+            self.dct_scan(segments, scan, ss, se, ah, al)
+
+    def layout(self, scan):
+        """The blocks of an MCU of the scan and, for each MCU, their
+        indices in the components' stores (the MCU grid for interleaved
+        scans, the component's own blocks for a one-component scan)."""
+        height, width = self.frame
+        hmax, vmax, mcux, mcuy = self.geometry()
+        if len(scan) == 1:
+            comp = scan[0][0]
+            bw = -(-(-(-width * comp["h"] // hmax)) // 8)
+            bh = -(-(-(-height * comp["v"] // vmax)) // 8)
+            stride = comp["blocks"][1]
+            return [0], [(y * stride + x,) for y in range(bh)
+                         for x in range(bw)]
+        members, rel = [], []
+        for k, (comp, _, _) in enumerate(scan):
+            stride = comp["blocks"][1]
+            for v in range(comp["v"]):
+                for h in range(comp["h"]):
+                    members.append(k)
+                    rel.append((comp, v, h, stride))
+        offsets = [tuple((my * comp["v"] + v) * stride + mx * comp["h"] + h
+                         for comp, v, h, stride in rel)
+                   for my in range(mcuy) for mx in range(mcux)]
+        return members, offsets
+
+    def dct_scan(self, segments, scan, ss, se, ah, al) -> None:
+        progressive = self.process == "progressive"
+        if not progressive and (ss != 0 or se != 63):
+            raise ValueError("JPEG: spectral selection in a sequential scan")
+        if progressive and (se > 63 or ss > se or (ss == 0) != (se == 0)
+                            or (ss > 0 and len(scan) != 1)):
+            raise ValueError(f"JPEG: bad progressive scan Ss={ss} Se={se} "
+                             f"with {len(scan)} components")
+        for comp, _, _ in scan:
+            if "store" not in comp:
+                self.allocate(comp)
+        members, offsets = self.layout(scan)
+        if self.coding == "arithmetic":
+            blocks = [(scan[k][0]["store"], scan[k][1], scan[k][2], k)
+                      for k in members]
+            _decode_arith(segments, offsets, blocks, self.restart,
+                          self.conditioning, progressive, ss, se, ah, al)
+        else:
+            blocks = []
+            for k in members:
+                comp, td, ta = scan[k]
+                # a scan reads only the tables it uses
+                dc = self.dc_tables.get(td) if ss == 0 and ah == 0 else None
+                ac = (self.ac_tables.get(ta)
+                      if se > 0 and (ah == 0 or progressive) else None)
+                if ((ss == 0 and ah == 0 and dc is None)
+                        or (se > 0 and ac is None)):
+                    raise ValueError("JPEG: scan uses an undefined Huffman "
+                                     "table")
+                blocks.append((comp["store"], dc, ac, k))
+            if progressive:
+                _decode_progressive(segments, offsets, blocks, self.restart,
+                                    ss, se, ah, al)
+            else:
+                _decode_scan(segments, offsets, blocks, self.restart)
+        if progressive:
+            for comp, _, _ in scan:
+                comp["coef_bits"][ss:se + 1] = [al] * (se + 1 - ss)
+
+    def lossless_scan(self, segments, scan, psv, se, ah, al) -> None:
+        """A lossless scan: the differences of its components' samples,
+        undifferenced (jddiffct.c::decompress_data: the first row of the
+        scan, and the first row of each MCU row group in which a restart
+        falls, take the first-row predictor)."""
+        if not 1 <= psv <= 7 or se or ah or al >= 8:
+            raise ValueError(f"JPEG: bad lossless scan Ss={psv} Se={se} "
+                             f"Ah={ah} Al={al}")
+        tables = []
+        for comp, td, _ in scan:
+            if td not in self.dc_tables:
+                raise ValueError("JPEG: scan uses an undefined Huffman table")
+            tables += [self.dc_tables[td]] * (
+                1 if len(scan) == 1 else comp["h"] * comp["v"])
+        _, _, mcux, mcuy = self.geometry()
+        if len(scan) == 1:
+            rows, per_row = self.size(scan[0][0])
+        else:
+            rows, per_row = mcuy, mcux
+        if self.restart and self.restart % per_row:
+            raise ValueError(f"JPEG: lossless restart interval "
+                             f"{self.restart} is not a multiple of the "
+                             f"{per_row} MCUs in an MCU row")
+        flat = np.frombuffer(_decode_differences(
+            segments, tables, rows * per_row, self.restart), np.int32)
+        # MCU rows after which a restart falls, as MCU row groups
+        step = self.restart // per_row if self.restart else 0
+        restarts = range(step, rows, step) if step else ()
+        offset = 0
+        for comp, _, _ in scan:
+            ch, cw = self.size(comp)
+            if len(scan) == 1:
+                diff = flat.reshape(ch, cw)
+                group = comp["v"]
+            else:
+                h, v = comp["h"], comp["v"]
+                units = flat.reshape(mcuy, mcux, -1)[..., offset:offset + h * v]
+                offset += h * v
+                diff = units.reshape(mcuy, mcux, v, h).transpose(0, 2, 1, 3)
+                diff = diff.reshape(mcuy * v, mcux * h)[:ch, :cw]
+                group = 1
+            first = {0} | {(y // group) * comp["v"] for y in restarts}
+            samples = _undifference(diff, psv, 1 << (8 - al - 1), first)
+            comp["samples"] = ((samples << al) & 0xFF).astype(np.uint8)
+
+    def finish(self) -> np.ndarray:
+        """Dequantise, smooth, inverse-DCT, upsample and colour-convert (or,
+        lossless, upsample the samples and colour-convert)."""
+        if self.frame is None:
+            raise ValueError("JPEG: no frame header")
+        height, width = self.frame
+        hmax, vmax, _, mcuy = self.geometry()
+        lossless = self.process == "lossless"
+        key = "samples" if lossless else "store"
+        for comp in self.comps:
+            if key not in comp:
+                raise ValueError(f"JPEG component {comp['id']} has no scan")
+        smooth = self.process == "progressive" and _smoothing_ok(self.comps)
+        planes = []
+        for comp in self.comps:
+            ch, cw = self.size(comp)
+            if lossless:
+                plane = comp["samples"]
+            else:
+                bh, bw = comp["blocks"]
+                coefs = np.frombuffer(comp["store"], np.int32).reshape(
+                    bh, bw, 64)
+                if smooth:
+                    coefs = _smooth(coefs, comp["coef_bits"], comp["qtable"],
+                                    comp["v"], mcuy, -(-ch // 8), -(-cw // 8))
+                rows, cols = coefs.shape[:2]
+                pixels = idct_islow(coefs.reshape(-1, 64), comp["qtable"])
+                plane = pixels.reshape(rows, cols, 8, 8).transpose(0, 2, 1, 3)
+                plane = plane.reshape(rows * 8, cols * 8)[:ch, :cw]
+            plane = _upsample(plane, comp["h"], comp["v"], hmax, vmax,
+                              fancy=not lossless)
+            planes.append(plane[:height, :width])
+        return _pixels(planes, self.space)
+
+
+def _segments(data: bytes):
+    """The marker segments of a JPEG byte string after SOI, up to EOI:
+    yields (marker, body, and for SOS, whose body is the scan header, the
+    scan's entropy-coded segments; None for the others)."""
+    if data[:2] != b"\xff\xd8":
+        raise ValueError("not a JPEG file (no SOI marker)")
     pos = 2
     while pos < len(data):
+        if data[pos] != 0xFF:
+            raise ValueError(f"JPEG: expected a marker at byte {pos}")
         marker = data[pos + 1]
         if marker == 0xFF:
             pos += 1
             continue
         pos += 2
+        if marker == 0xD9:
+            return
         if marker in (0x01, 0xD8) or 0xD0 <= marker <= 0xD7:
             continue
         length = struct.unpack(">H", data[pos:pos + 2])[0]
-        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
-            height, width = struct.unpack(">HH", data[pos + 3:pos + 7])
-            return width, height
+        seg = data[pos + 2:pos + length]
         pos += length
+        scan = None
+        if marker == 0xDA:
+            scan, pos = _split_scan(data, pos)
+        yield marker, seg, scan
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """Decode a JPEG byte string as PIL does (see the module docstring) ->
+    [H, W] uint8 grey, [H, W, 3] uint8 RGB or [H, W, 4] uint8 CMYK."""
+    dec = _Decoder()
+    for marker, seg, scan in _segments(data):
+        if scan is None:
+            dec.marker(marker, seg)
+        else:
+            dec.scan(seg, scan)
+    return dec.finish()
+
+
+def read_jpeg(path) -> np.ndarray:
+    """The pixels of the JPEG file at ``path``, as ``np.array(Image.open(
+    path))`` gives them: [H, W] grey, [H, W, 3] RGB or [H, W, 4] CMYK,
+    uint8."""
+    return decode_jpeg(Path(path).read_bytes())
+
+
+def _frame_header(path):
+    """(height, width, components) of the JPEG file at ``path``, from its
+    frame header."""
+    data = Path(path).read_bytes()
+    for marker, seg, _ in _segments(data):
+        if 0xC0 <= marker <= 0xCF and marker not in (0xC4, 0xC8, 0xCC):
+            return struct.unpack(">HHB", seg[1:6])
     raise ValueError(f"{path}: no JPEG frame header")
+
+
+def jpeg_size(path) -> tuple:
+    """(width, height) of the JPEG file at ``path``, read from its frame
+    header without decoding (as ``Image.open(path).size``)."""
+    height, width, _ = _frame_header(path)
+    return width, height
+
+
+def jpeg_mode(path) -> str:
+    """PIL's mode of the JPEG file at ``path``: "L", "RGB" or "CMYK" for
+    1, 3 or 4 components, from its frame header."""
+    components = _frame_header(path)[2]
+    modes = {1: "L", 3: "RGB", 4: "CMYK"}
+    if components not in modes:
+        raise NotImplementedError(f"JPEG with {components} components")
+    return modes[components]
 
 
 # ---------------------------------------------------------------------------

@@ -94,6 +94,18 @@ bytes, PNG headers and PIL's pixels, npz arrays, pickled objects), and the
 reader's arrays as digests with every 509th ray; the same again under
 ``cut_`` for the scene cut to 2 raw frames (keyframe window 1); add the
 argument ``preprocess`` (about 20 s).
+
+``write_codec_golden()`` writes one JPEG of each kind the JAX package
+reads through PIL and the scene writer does not write
+(``inference/fidelity.py::CODEC_KINDS``: RGB-coded, CMYK, YCCK, 4:4:0 and
+4:1:1 chroma, a progressive file cut where libjpeg block-smooths,
+sequential and progressive arithmetic coding, lossless) at 480x640, by
+PIL or by the hand-written writers of ``tests/test_torch_port_codecs.py``,
+and writes ``contrastive_lift_tpu_torch/testdata/codec_golden.npz``: the
+files, PIL's mode, shape and pixels of each (the digest of the whole and
+its top-left corner), the JAX package's ``_load_rgb`` of the RGB-coded and
+the CMYK frame at 60x80, and PIL's ``convert("L")`` of the CMYK frame;
+add the argument ``codecs`` (a few seconds).
 """
 import subprocess
 import sys
@@ -121,6 +133,7 @@ TOOLS_GOLDEN = GOLDEN.with_name("r5b_tools_golden.npz")
 OPTIONS_GOLDEN = GOLDEN.with_name("r5b_options_golden.npz")
 DISTILLED_GOLDEN = GOLDEN.with_name("r5b_distilled_golden.npz")
 PREPROCESS_GOLDEN = GOLDEN.with_name("scannet_preprocess_golden.npz")
+CODEC_GOLDEN = GOLDEN.with_name("codec_golden.npz")
 RAY_STRIDE = 12
 MAP_KEYS = ("rgb", "semantics", "instances", "depth")
 # a golden ray counts as moved by jit where a map differs by more than this
@@ -134,6 +147,7 @@ TOOLS_COMMAND = COMMAND + " tools"
 OPTIONS_COMMAND = COMMAND + " options"
 DISTILLED_COMMAND = COMMAND + " distilled"
 PREPROCESS_COMMAND = COMMAND + " preprocess"
+CODECS_COMMAND = COMMAND + " codecs"
 # the preprocessing golden's records: (prefix, raw frames, keyframe window)
 PREPROCESS_RECORDS = (("", 12, 2), ("cut_", 2, 1))
 # the training golden's sampler seed
@@ -1706,8 +1720,123 @@ def test_port_on_cpu_matches_preprocess_golden(tmp_path):
     _port_preprocess(tmp_path, "")
 
 
+def codec_files() -> dict:
+    """The codec golden's files by kind, from one 480x640 frame with
+    sensor-like noise: PIL's RGB-coded (``keep_rgb``), CMYK and
+    progressive files (the last cut after 6 of its 10 scans, the luma's
+    low AC bits still short), and the hand-written writers' YCCK (4:2:0
+    chroma, full K), 4:4:0, 4:1:1, arithmetic (restarts and a DAC
+    segment; sequential and progressive) and lossless (predictor 1,
+    restarts every 16 rows, ids 1, 2, 3: RGB) files."""
+    import io
+
+    from PIL import Image
+    from test_torch_port_codecs import (
+        JFIF_APP0, _frame_image, _scan_cuts, _ycc_planes, adobe_app14,
+        write_arithmetic_jpeg, write_huffman_jpeg, write_lossless_jpeg)
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+
+    rgb = _frame_image(*fid.CODEC_HW, seed=16, noise=2.0)
+    ycc = _ycc_planes(rgb)
+
+    def pil(image, **kw):
+        buf = io.BytesIO()
+        image.save(buf, "JPEG", quality=90, **kw)
+        return buf.getvalue()
+
+    progressive = pil(Image.fromarray(rgb), progressive=True)
+    ycc_420 = [(2, 2), (1, 1), (1, 1)]
+    return {
+        "rgb_coded": pil(Image.fromarray(rgb), keep_rgb=True),
+        "cmyk": pil(Image.fromarray(rgb).convert("CMYK")),
+        "ycck": write_huffman_jpeg(
+            ycc + [255 - rgb.min(axis=-1)], ycc_420 + [(2, 2)],
+            markers=adobe_app14(2)),
+        "sampling_440": write_huffman_jpeg(ycc, [(1, 2), (1, 1), (1, 1)],
+                                           markers=JFIF_APP0),
+        "sampling_411": write_huffman_jpeg(ycc, [(4, 1), (1, 1), (1, 1)],
+                                           markers=JFIF_APP0),
+        "progressive_smoothed": _scan_cuts(progressive)[5],
+        "arithmetic": write_arithmetic_jpeg(
+            ycc, ycc_420, markers=JFIF_APP0, restart=40,
+            dac={"dc": (1, 3), "ac": 8}),
+        "arithmetic_progressive": write_arithmetic_jpeg(
+            ycc, ycc_420, markers=JFIF_APP0, progressive=True),
+        "lossless": write_lossless_jpeg(list(np.moveaxis(rgb, -1, 0)), 1,
+                                        restart_rows=16)}
+
+
+def write_codec_golden(path=CODEC_GOLDEN) -> dict:
+    """PIL's pixels of ``codec_files()`` and the JAX package's loads of two
+    of them (see the module docstring)."""
+    import tempfile
+
+    import PIL
+    from PIL import Image, features
+    from test_torch_port_codecs import _pil_pixels
+
+    from contrastive_lift_tpu.data.panopli import _load_rgb as j_load_rgb
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+
+    crop = (slice(0, fid.CODEC_CROP), slice(0, fid.CODEC_CROP))
+    out = {"kinds": np.array(fid.CODEC_KINDS), "hw": np.array(fid.CODEC_HW),
+           "load_hw": np.array(fid.CODEC_LOAD_HW),
+           "pil": np.array(f"Pillow {PIL.__version__}, libjpeg-turbo "
+                           f"{features.version('libjpeg_turbo')}")}
+    with tempfile.TemporaryDirectory() as tmp:
+        for kind, data in codec_files().items():
+            pixels = _pil_pixels(data)
+            file = Path(tmp) / f"{kind}.jpg"
+            file.write_bytes(data)
+            out.update({f"{kind}_file": np.frombuffer(data, np.uint8),
+                        f"{kind}_mode": np.array(Image.open(file).mode),
+                        f"{kind}_shape": np.array(pixels.shape),
+                        f"{kind}_digest": np.array(fid.array_digest(pixels)),
+                        f"{kind}_crop": pixels[crop]})
+            if kind in ("rgb_coded", "cmyk"):
+                out[f"{kind}_load_rgb"] = j_load_rgb(file, fid.CODEC_LOAD_HW)
+        grey = np.asarray(Image.open(Path(tmp) / "cmyk.jpg").convert("L"))
+        out.update(cmyk_grey_digest=np.array(fid.array_digest(grey)),
+                   cmyk_grey_crop=grey[crop])
+    out.update(commit=_commit(), command=CODECS_COMMAND)
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    np.savez_compressed(path, **out)
+    return out
+
+
+def test_codec_golden_layout_and_cpu_decode(tmp_path):
+    """The committed codec golden: every kind at 480x640 with PIL's mode,
+    shape, digest and corner, the two loads and the grey conversion;
+    under 2 MB. Then the card phase's check on the CPU: every file
+    decoded by the port equal to PIL's pixels, the loads and the grey
+    conversion equal."""
+    from contrastive_lift_tpu_torch.inference import fidelity as fid
+    assert CODEC_GOLDEN.stat().st_size < 2 << 20
+    with np.load(CODEC_GOLDEN) as g:
+        golden = {k: g[k] for k in g.files}
+    assert tuple(golden["kinds"]) == fid.CODEC_KINDS
+    assert tuple(golden["hw"]) == fid.CODEC_HW
+    modes = {"cmyk": "CMYK", "ycck": "CMYK"}
+    for kind in fid.CODEC_KINDS:
+        assert golden[f"{kind}_file"][:2].tobytes() == b"\xff\xd8"
+        assert str(golden[f"{kind}_mode"]) == modes.get(kind, "RGB")
+        assert tuple(golden[f"{kind}_shape"]) == fid.CODEC_HW + (
+            4 if kind in modes else 3,)
+        assert golden[f"{kind}_crop"].shape[:2] == (fid.CODEC_CROP,) * 2
+    for kind in ("rgb_coded", "cmyk"):
+        assert golden[f"{kind}_load_rgb"].shape == fid.CODEC_LOAD_HW + (3,)
+    assert len(str(golden["commit"])) == 40
+    assert str(golden["command"]) == CODECS_COMMAND
+    res = fid.check_codecs(golden, tmp_path, repeats=1)
+    assert not res["failures"], res["failures"]
+    assert set(res["decode_seconds"]) == set(fid.CODEC_KINDS)
+
+
 if __name__ == "__main__":
-    if sys.argv[1:] == ["preprocess"]:
+    if sys.argv[1:] == ["codecs"]:
+        rec = write_codec_golden()
+        print({k: v for k, v in rec.items() if np.size(v) < 60})
+    elif sys.argv[1:] == ["preprocess"]:
         rec = write_preprocess_golden()
         print({k: v for k, v in rec.items() if np.size(v) < 60})
     elif sys.argv[1:] == ["distilled"]:

@@ -53,7 +53,10 @@ from contrastive_lift_tpu_torch.data.preprocessing import scannet as tscannet  #
 from contrastive_lift_tpu_torch.data.preprocessing import sens_reader as tsens  # noqa: E402
 from contrastive_lift_tpu_torch.data.synthetic import _look_at  # noqa: E402
 from contrastive_lift_tpu_torch.inference import fidelity as fid  # noqa: E402
+from contrastive_lift_tpu_torch.utils.jpeg import rgb_to_ycc  # noqa: E402
 from contrastive_lift_tpu_torch.utils.png import read_png  # noqa: E402
+from test_torch_port_codecs import (  # noqa: E402
+    JFIF_APP0, write_huffman_jpeg)
 
 # the undistorted images' allowance on the pinhole path (see the docstring)
 ITW_K_RTOL = 1e-6
@@ -448,12 +451,28 @@ def _png_rgb16(path, rgb16):
                      + chunk(b"IDAT", zlib.compress(raw)) + chunk(b"IEND", b""))
 
 
+def _mixed_jpeg(path, rgb, i):
+    """Frame ``i`` as a CMYK JPEG (PIL's, its K a strong texture, so that
+    greying it without K changes its blur score), an RGB-coded one (PIL's
+    ``keep_rgb``) or a 4:4:0 YCbCr one (written by hand), by ``i % 3``."""
+    if i % 3 == 0:
+        k = np.random.default_rng(i).integers(0, 160, rgb.shape[:2])
+        cmyk = np.concatenate([255 - rgb, k[..., None].astype(np.uint8)], -1)
+        Image.fromarray(cmyk, "CMYK").save(path, quality=90)
+    elif i % 3 == 1:
+        Image.fromarray(rgb).save(path, quality=90, keep_rgb=True)
+    else:
+        planes = [p.astype(np.uint8) for p in rgb_to_ycc(rgb)]
+        path.write_bytes(write_huffman_jpeg(planes, [(1, 2), (1, 1), (1, 1)],
+                                            markers=JFIF_APP0))
+
+
 def _generic_raw(root, n=5, hw=(20, 26), wide=False, frames="png",
                  invalid=True):
-    """Frames (8-bit PNG, PIL JPEG, 16-bit RGB PNG or palette PNG, by
-    ``frames``), pose txts, a 3x3 intrinsic, GT labels (instance ids past
-    255 with ``wide``), machine labels and invalid masks for some
-    frames."""
+    """Frames (8-bit PNG, PIL JPEG, 16-bit RGB PNG, palette PNG, or CMYK,
+    RGB-coded and 4:4:0 JPEGs, by ``frames``), pose txts, a 3x3
+    intrinsic, GT labels (instance ids past 255 with ``wide``), machine
+    labels and invalid masks for some frames."""
     rng = np.random.default_rng(5)
     for sub in ("frames", "poses", "sem", "inst", "m2f", "invalid"):
         (root / sub).mkdir(parents=True, exist_ok=True)
@@ -467,6 +486,8 @@ def _generic_raw(root, n=5, hw=(20, 26), wide=False, frames="png",
                        * 257 + rng.integers(0, 256, rgb.shape))
         elif frames == "palette":
             Image.fromarray(rgb).quantize(16).save(root / "frames" / f"{i}.png")
+        elif frames == "mixed_jpeg":
+            _mixed_jpeg(root / "frames" / f"{i}.jpg", rgb, i)
         else:
             Image.fromarray(rgb).save(root / "frames" / f"{i}.png")
         np.savetxt(root / "poses" / f"{i}.txt", _pose(i, n))
@@ -485,15 +506,18 @@ def _generic_raw(root, n=5, hw=(20, 26), wide=False, frames="png",
 
 @pytest.mark.parametrize("case", ["resize", "no_resize", "wide_ids_jpeg",
                                   "mapping_subsample", "rgb16_frames",
-                                  "palette_frames"])
+                                  "palette_frames", "mixed_jpeg_frames"])
 def test_preprocess_generic_matches_jax(tmp_path, case):
     """Frames and GT resized (LANCZOS, NEAREST) or kept at their size,
     instance ids past 255, JPEG frames, 16-bit RGB frames (PIL's 8-bit
     high bytes), palette frames (PIL resizes their indices NEAREST and the
-    script keeps the first three columns of them), invalid masks, a label
-    mapping and a subsample: trees equal."""
+    script keeps the first three columns of them), CMYK, RGB-coded and
+    4:4:0 JPEG frames (a CMYK frame resized as CMYK, then its first three
+    channels), invalid masks, a label mapping and a subsample: trees
+    equal."""
     frames = {"wide_ids_jpeg": "jpeg", "rgb16_frames": "rgb16",
-              "palette_frames": "palette"}.get(case, "png")
+              "palette_frames": "palette",
+              "mixed_jpeg_frames": "mixed_jpeg"}.get(case, "png")
     raw = _generic_raw(tmp_path / "raw", wide=case == "wide_ids_jpeg",
                        frames=frames)
     kw = dict(gt_semantics_dir=raw / "sem", gt_instance_dir=raw / "inst",
@@ -583,7 +607,7 @@ def test_preprocess_replica_matches_jax(tmp_path):
 # itw.py
 # ---------------------------------------------------------------------------
 
-def _itw_raw(root, model, n=4, hw=(30, 40)):
+def _itw_raw(root, model, n=4, hw=(30, 40), kind="png"):
     h, w = hw
     frames = root / "frames"
     frames.mkdir(parents=True)
@@ -594,10 +618,14 @@ def _itw_raw(root, model, n=4, hw=(30, 40)):
                   k4=-0.001)
     else:
         tr.update(k1=-0.12, k2=0.03, p1=0.002, p2=-0.003)
+    suffix = "png" if kind == "png" else "jpg"
     for i in range(n):
-        Image.fromarray(_smooth(h, w, seed=i, noise=3 + 4 * i)).save(
-            frames / f"{i:04d}.png")
-        tr["frames"].append({"file_path": f"images/{i:04d}.png",
+        rgb = _smooth(h, w, seed=i, noise=3 + 4 * i)
+        if kind == "png":
+            Image.fromarray(rgb).save(frames / f"{i:04d}.png")
+        else:
+            _mixed_jpeg(frames / f"{i:04d}.jpg", rgb, i)
+        tr["frames"].append({"file_path": f"images/{i:04d}.{suffix}",
                              "transform_matrix": _pose(i, n).tolist()})
     (root / "transforms.json").write_text(json.dumps(tr))
     return root
@@ -674,6 +702,24 @@ def test_preprocess_itw_matches_jax(tmp_path, model):
     bad = [k for k in want if got[k] != want[k] and not images.match(k)]
     assert not bad
     _images_close(tout, jout, ITW_OFF_BY_ONE)
+
+
+def test_preprocess_itw_reads_mixed_jpeg_frames(tmp_path):
+    """A fisheye capture of CMYK, RGB-coded and 4:4:0 JPEG frames, keyframes
+    picked by PIL's grey conversion (a CMYK frame through RGB): the same
+    keyframes, trees equal."""
+    raw = _itw_raw(tmp_path / "raw", "fisheye", n=6, kind="mixed_jpeg")
+    assert {Image.open(p).mode for p in (raw / "frames").iterdir()} == {
+        "RGB", "CMYK"}
+    kw = dict(num_classes=2, thing_classes=[1], keyframe_window=2,
+              image_hw=(20, 28))
+    j, t, jout, tout = run_both(tmp_path, jitw.preprocess_itw,
+                                titw.preprocess_itw, raw / "transforms.json",
+                                raw / "frames", out_arg=2, **kw)
+    assert t["frames"] == j["frames"] == 3
+    assert assert_trees_equal(tout, jout) > 10
+    # the CMYK frame 0 (sharpest through its K) is a keyframe
+    assert (jout / "undistorted" / "color" / "0000.png").exists()
 
 
 def test_read_transforms_matches_jax(tmp_path):

@@ -9,7 +9,8 @@ segments; GT; distilled-feature npy), the MOS scene like
 confidences). Both are read at their own size and resized to a size that is
 not an integer ratio of it. Bars: splits, intrinsics, labels, masks and
 segments equal; rays, probabilities, confidences and features within 1e-6;
-rgb within 1/255.
+rgb within 1/255, and equal where the colour frames are RGB-coded and CMYK
+JPEGs.
 """
 import json
 import pickle
@@ -264,3 +265,26 @@ def test_write_mos_scene_round_trip(tmp_path):
     for f, got in zip(frames[8:], loaded.val_frames):
         np.testing.assert_array_equal(got.gt_semantics, f.gt_semantics)
         np.testing.assert_array_equal(got.gt_instances, f.gt_instances)
+
+
+@pytest.mark.parametrize("hw", [PANOPLI_HW, (16, 20)])
+def test_panopli_reader_reads_rgb_coded_and_cmyk_frames(tmp_path, hw):
+    """A PanopLi scene whose ``color/*.jpg`` PIL wrote RGB-coded
+    (``keep_rgb``) and CMYK: both readers, at the frames' size and resized
+    (the CMYK frames LANCZOS-resized as CMYK, not as premultiplied RGBA,
+    then their first 3 channels), equal, rgb included."""
+    root = write_panopli_scene(tmp_path / "scene", features=False)
+    frames = sorted((root / "color").glob("*.jpg"))
+    for i, path in enumerate(frames):
+        rgb = np.asarray(Image.open(path))
+        if i % 2:
+            Image.fromarray(rgb).save(path, quality=90, keep_rgb=True)
+        else:
+            Image.fromarray(rgb).convert("CMYK").save(path, quality=90)
+    assert {Image.open(p).mode for p in frames} == {"RGB", "CMYK"}
+    js = JPanopLi(root, hw, 4.0).load_scene()
+    ts = TPanopLi(root, hw, 4.0).load_scene()
+    assert_scenes_match(js, ts)
+    for jf, tf in zip(js.train_frames + js.val_frames,
+                      ts.train_frames + ts.val_frames):
+        np.testing.assert_array_equal(tf.rgbs, jf.rgbs)
