@@ -8,13 +8,16 @@ JAX package's do, so one seed gives both packages the same batches:
   1. ``InstanceBundleSampler``: per-image bundles of labeled-instance rays,
      labels compacted to [0, max_labels);
   2. ``SegmentBundleSampler``: per-2D-segment bundles for the grouping loss.
-Batches are fixed-size and padded, with validity masks."""
+Batches are fixed-size and padded, with validity masks. Each draw runs in
+the span ``train.sample`` (``utils/observability.py``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional
 
 import numpy as np
+
+from ..utils.observability import span
 
 
 @dataclass
@@ -84,21 +87,22 @@ class RayPoolSampler:
         self.n = self.rays.shape[0]
 
     def sample(self, rng: np.random.Generator, batch_size: int) -> dict:
-        from .native import gather_rows
-        idx = rng.integers(0, self.n, batch_size)
-        batch = {
-            "rays": gather_rows(self.rays, idx),
-            "rgbs": gather_rows(self.rgbs, idx),
-            "semantics": self.semantics[idx],
-            "probabilities": gather_rows(self.probabilities, idx),
-            "confidences": self.confidences[idx],
-            "mask": self.mask[idx],
-        }
-        if self.feats is not None:
-            batch["feats"] = gather_rows(self.feats, idx)
-        if self.depth is not None:
-            batch["depth"] = self.depth[idx]
-        return batch
+        with span("train.sample"):
+            from .native import gather_rows
+            idx = rng.integers(0, self.n, batch_size)
+            batch = {
+                "rays": gather_rows(self.rays, idx),
+                "rgbs": gather_rows(self.rgbs, idx),
+                "semantics": self.semantics[idx],
+                "probabilities": gather_rows(self.probabilities, idx),
+                "confidences": self.confidences[idx],
+                "mask": self.mask[idx],
+            }
+            if self.feats is not None:
+                batch["feats"] = gather_rows(self.feats, idx)
+            if self.depth is not None:
+                batch["depth"] = self.depth[idx]
+            return batch
 
 
 class InstanceBundleSampler:
@@ -128,29 +132,33 @@ class InstanceBundleSampler:
             raise ValueError("Empty instance dataset")
 
     def sample(self, rng: np.random.Generator, num_images: int) -> dict:
-        picks = rng.integers(0, len(self.per_image), num_images)
-        R = self.max_rays
-        rays = np.zeros((num_images, R, 8), np.float32)
-        labels = np.zeros((num_images, R), np.int32)
-        confs = np.zeros((num_images, R), np.float32)
-        valid = np.zeros((num_images, R), bool)
-        for i, p in enumerate(picks):
-            img = self.per_image[p]
-            n = img["rays"].shape[0]
-            take = rng.permutation(n)[:R] if n > R else rng.permutation(n)
-            k = take.size
-            rays[i, :k] = img["rays"][take]
-            confs[i, :k] = img["confidences"][take]
-            valid[i, :k] = True
-            # compact labels to [0, max_labels); overflow labels fold together
-            raw = img["labels"][take]
-            _, compact = np.unique(raw, return_inverse=True)
-            labels[i, :k] = np.minimum(compact, self.max_labels - 1)
-            # shuffle within the bundle so the fast/slow half-split is random
-            perm = rng.permutation(R)
-            rays[i], labels[i] = rays[i][perm], labels[i][perm]
-            confs[i], valid[i] = confs[i][perm], valid[i][perm]
-        return {"rays": rays, "labels": labels, "confidences": confs, "valid": valid}
+        with span("train.sample"):
+            picks = rng.integers(0, len(self.per_image), num_images)
+            R = self.max_rays
+            rays = np.zeros((num_images, R, 8), np.float32)
+            labels = np.zeros((num_images, R), np.int32)
+            confs = np.zeros((num_images, R), np.float32)
+            valid = np.zeros((num_images, R), bool)
+            for i, p in enumerate(picks):
+                img = self.per_image[p]
+                n = img["rays"].shape[0]
+                take = rng.permutation(n)[:R] if n > R else rng.permutation(n)
+                k = take.size
+                rays[i, :k] = img["rays"][take]
+                confs[i, :k] = img["confidences"][take]
+                valid[i, :k] = True
+                # compact labels to [0, max_labels); overflow labels fold
+                # together
+                raw = img["labels"][take]
+                _, compact = np.unique(raw, return_inverse=True)
+                labels[i, :k] = np.minimum(compact, self.max_labels - 1)
+                # shuffle within the bundle so the fast/slow half-split is
+                # random
+                perm = rng.permutation(R)
+                rays[i], labels[i] = rays[i][perm], labels[i][perm]
+                confs[i], valid[i] = confs[i][perm], valid[i][perm]
+            return {"rays": rays, "labels": labels, "confidences": confs,
+                    "valid": valid}
 
 
 class SegmentBundleSampler:
@@ -181,20 +189,22 @@ class SegmentBundleSampler:
         return len(self.segments)
 
     def sample(self, rng: np.random.Generator, num_segments: int) -> dict:
-        picks = rng.integers(0, len(self.segments), num_segments)
-        R = self.max_rays
-        rays = np.zeros((num_segments * R, 8), np.float32)
-        group = np.zeros((num_segments * R,), np.int32)
-        confs = np.zeros((num_segments * R,), np.float32)
-        valid = np.zeros((num_segments * R,), bool)
-        for i, p in enumerate(picks):
-            seg = self.segments[p]
-            n = seg["rays"].shape[0]
-            take = rng.permutation(n)[:R]
-            k = take.size
-            lo = i * R
-            rays[lo:lo + k] = seg["rays"][take]
-            confs[lo:lo + k] = seg["confidences"][take]
-            group[lo:lo + R] = i
-            valid[lo:lo + k] = True
-        return {"rays": rays, "group": group, "confidences": confs, "valid": valid}
+        with span("train.sample"):
+            picks = rng.integers(0, len(self.segments), num_segments)
+            R = self.max_rays
+            rays = np.zeros((num_segments * R, 8), np.float32)
+            group = np.zeros((num_segments * R,), np.int32)
+            confs = np.zeros((num_segments * R,), np.float32)
+            valid = np.zeros((num_segments * R,), bool)
+            for i, p in enumerate(picks):
+                seg = self.segments[p]
+                n = seg["rays"].shape[0]
+                take = rng.permutation(n)[:R]
+                k = take.size
+                lo = i * R
+                rays[lo:lo + k] = seg["rays"][take]
+                confs[lo:lo + k] = seg["confidences"][take]
+                group[lo:lo + R] = i
+                valid[lo:lo + k] = True
+            return {"rays": rays, "group": group, "confidences": confs,
+                    "valid": valid}

@@ -47,6 +47,7 @@ from ..renderer import render as R
 from ..renderer.bake import bake_head_tables
 from ..utils import geometry as geo
 from ..utils.device import resolve_device
+from ..utils.observability import span
 from ..utils.png import write_png
 from ..utils.viz import save_image, visualize_panoptic_outputs
 from .cluster import (assign_clusters, cluster, cluster_segmentwise,
@@ -101,36 +102,41 @@ def prepare_render(params, mcfg, rcfg, state_r, frames: List[FrameData],
     group sizes; and, with ``auto_budget``, budgets calibrated on a probe of
     up to 8 frames (4,096 rays), on a ``mesh`` by rank 0 alone and
     broadcast."""
-    if not use_fused:
+    with span("render.prepare"):
+        if not use_fused:
+            if tail_complete is None:
+                tail_complete = rcfg.head_topk is not None
+            if rcfg.head_topk is not None:
+                rcfg = dataclasses.replace(rcfg,
+                                           head_tail_complete=tail_complete)
+            return rcfg, None
+        with span("render.grids"):
+            fused = _build_render_grids(params, mcfg, rcfg, state_r)
         if tail_complete is None:
             tail_complete = rcfg.head_topk is not None
-        if rcfg.head_topk is not None:
+        if (rcfg.head_topk is not None
+                and tail_complete != rcfg.head_tail_complete):
             rcfg = dataclasses.replace(rcfg, head_tail_complete=tail_complete)
-        return rcfg, None
-    fused = _build_render_grids(params, mcfg, rcfg, state_r)
-    if tail_complete is None:
-        tail_complete = rcfg.head_topk is not None
-    if rcfg.head_topk is not None and tail_complete != rcfg.head_tail_complete:
-        rcfg = dataclasses.replace(rcfg, head_tail_complete=tail_complete)
-    if (l2_only and rcfg.sub_stride is not None
-            and fused.coarse_occ_tight is not None):
-        rcfg = dataclasses.replace(rcfg, use_l1=False)
-    if fused.occ_bits_group is not None:
-        rcfg = R.occ_grouping_for(rcfg, state_r)
-    if (auto_budget and frames and rcfg.coarse_stride is not None
-            and fused.coarse_occ is not None):
-        if mesh is None or mesh.rank == 0:
-            sel = frames[::max(1, len(frames) // 8)][:8]
-            per = max(1, 4096 // len(sel))
-            probe = np.concatenate(
-                [f.rays[::max(1, len(f.rays) // per)][:per] for f in sel])
-            rcfg = R.calibrate_budgets(mcfg, rcfg, state_r, probe, fused,
-                                       termination=termination,
-                                       head_term=head_term,
-                                       head_tail_eps=head_tail_eps)
-        if mesh is not None:
-            rcfg = pmesh.broadcast_object(mesh, rcfg)
-    return rcfg, fused
+        if (l2_only and rcfg.sub_stride is not None
+                and fused.coarse_occ_tight is not None):
+            rcfg = dataclasses.replace(rcfg, use_l1=False)
+        if fused.occ_bits_group is not None:
+            rcfg = R.occ_grouping_for(rcfg, state_r)
+        if (auto_budget and frames and rcfg.coarse_stride is not None
+                and fused.coarse_occ is not None):
+            if mesh is None or mesh.rank == 0:
+                sel = frames[::max(1, len(frames) // 8)][:8]
+                per = max(1, 4096 // len(sel))
+                probe = np.concatenate(
+                    [f.rays[::max(1, len(f.rays) // per)][:per] for f in sel])
+                with span("render.calibrate"):
+                    rcfg = R.calibrate_budgets(
+                        mcfg, rcfg, state_r, probe, fused,
+                        termination=termination, head_term=head_term,
+                        head_tail_eps=head_tail_eps)
+            if mesh is not None:
+                rcfg = pmesh.broadcast_object(mesh, rcfg)
+        return rcfg, fused
 
 
 class RenderReport(NamedTuple):
@@ -202,62 +208,73 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
     """``render_frames``, returning with the maps the render config the
     chunks used (calibrated budgets included) and the guardrail maxima. On
     a ``mesh`` without ``maps_on_every_rank`` only rank 0 gets the maps
-    (the others' are None)."""
+    (the others' are None). Spans (``utils/observability.py``): the call's
+    ``render.frames`` around ``render.prepare`` (around ``render.grids``
+    and ``render.calibrate``), ``render.rays_in`` (the span check, each
+    frame's rays padded and uploaded), each chunk's ``render.chunk`` and
+    ``render.to_host`` (each frame's maps copied to the host, and the
+    frames' maps assembled from their chunks')."""
     if mesh is not None and chunk % mesh.size:
         raise ValueError(f"chunk={chunk} must divide mesh size {mesh.size}")
     dev = resolve_device(device)
     if state_r.step_size.device != dev:
         raise ValueError(f"render state is on {state_r.step_size.device}, "
                          f"render_frames was asked for {dev}")
-    first = np.cumsum([0] + [-(-len(f.rays) // chunk) for f in frames])
-    # the port's chunk-to-rank assignment: rank r renders the whole chunks
-    # r, r + W, ... of all the frames' chunks (without a mesh, every chunk)
-    mine = set(range(first[-1]) if mesh is None
-               else pmesh.group_batch_sharding(mesh, int(first[-1])))
-    outs, tails = {}, []
-    with torch.no_grad():
-        rcfg, fused = prepare_render(
-            params, mcfg, rcfg, state_r, frames, auto_budget=auto_budget,
-            termination=termination, head_term=head_term, l2_only=l2_only,
-            head_tail_eps=head_tail_eps, tail_complete=tail_complete,
-            use_fused=use_fused, mesh=mesh)
-        if bake_heads and fused is not None and fused.slot_map is not None:
-            fused = bake_head_tables(params, mcfg, fused)
-        # the span gathers' exactness, checked once before any chunk
-        R.validate_fine_span(rcfg, state_r)
-        for fi, f in enumerate(frames):
-            js = [j for j in range(first[fi], first[fi + 1]) if j in mine]
-            rays_dev = (torch.from_numpy(_pad_to_chunks(f.rays, chunk)).to(dev)
-                        if js else None)
-            frame = {j: R.render_rays(
-                params, mcfg, rcfg, state_r,
-                rays_dev[(j - first[fi]) * chunk:][:chunk], fused=fused)
-                for j in js}
-            tails.extend(torch.stack([o["budget_tail"], o["head_tail"],
-                                      o["dedup_tail"]])
-                         for o in frame.values())
-            # a frame's maps leave the card once its chunks are rendered
-            outs.update({j: {k: o[k].cpu().numpy() for k in MAP_KEYS}
-                         for j, o in frame.items()})
-            if progress and (mesh is None or mesh.rank == 0):
-                print(f"rendered frame {fi + 1}/{len(frames)}", flush=True)
-    if mesh is not None and frames:
-        outs = pmesh.gather_chunks(mesh, outs,
-                                   dst=None if maps_on_every_rank else 0)
-        tail = (torch.stack(tails).amax(dim=0) if tails
-                else torch.zeros(3, device=dev))
-        tails = [pmesh.all_reduce_(mesh, tail, "max")]
-    results = None
-    if mesh is None or maps_on_every_rank or mesh.rank == 0:
-        results = [{k: np.concatenate([outs[j][k] for j in
-                                       range(first[fi], first[fi + 1])])
+    with span("render.frames"):
+        first = np.cumsum([0] + [-(-len(f.rays) // chunk) for f in frames])
+        # the port's chunk-to-rank assignment: rank r renders the whole chunks
+        # r, r + W, ... of all the frames' chunks (without a mesh, every chunk)
+        mine = set(range(first[-1]) if mesh is None
+                   else pmesh.group_batch_sharding(mesh, int(first[-1])))
+        outs, tails = {}, []
+        with torch.no_grad():
+            rcfg, fused = prepare_render(
+                params, mcfg, rcfg, state_r, frames, auto_budget=auto_budget,
+                termination=termination, head_term=head_term, l2_only=l2_only,
+                head_tail_eps=head_tail_eps, tail_complete=tail_complete,
+                use_fused=use_fused, mesh=mesh)
+            if bake_heads and fused is not None and fused.slot_map is not None:
+                fused = bake_head_tables(params, mcfg, fused)
+            # the span gathers' exactness, checked once before any chunk
+            with span("render.rays_in"):
+                R.validate_fine_span(rcfg, state_r)
+            for fi, f in enumerate(frames):
+                js = [j for j in range(first[fi], first[fi + 1]) if j in mine]
+                with span("render.rays_in"):
+                    rays_dev = (torch.from_numpy(_pad_to_chunks(f.rays, chunk))
+                                .to(dev) if js else None)
+                frame = {j: R.render_rays(
+                    params, mcfg, rcfg, state_r,
+                    rays_dev[(j - first[fi]) * chunk:][:chunk], fused=fused)
+                    for j in js}
+                tails.extend(torch.stack([o["budget_tail"], o["head_tail"],
+                                          o["dedup_tail"]])
+                             for o in frame.values())
+                # a frame's maps leave the card once its chunks are rendered
+                with span("render.to_host"):
+                    outs.update({j: {k: o[k].cpu().numpy() for k in MAP_KEYS}
+                                 for j, o in frame.items()})
+                if progress and (mesh is None or mesh.rank == 0):
+                    print(f"rendered frame {fi + 1}/{len(frames)}", flush=True)
+        if mesh is not None and frames:
+            outs = pmesh.gather_chunks(mesh, outs,
+                                       dst=None if maps_on_every_rank else 0)
+            tail = (torch.stack(tails).amax(dim=0) if tails
+                    else torch.zeros(3, device=dev))
+            tails = [pmesh.all_reduce_(mesh, tail, "max")]
+        results = None
+        if mesh is None or maps_on_every_rank or mesh.rank == 0:
+            with span("render.to_host"):
+                results = [{k: np.concatenate(
+                    [outs[j][k] for j in range(first[fi], first[fi + 1])])
                     [:len(f.rays)] for k in MAP_KEYS}
-                   for fi, f in enumerate(frames)]
-    budget_tail, head_tail, dedup_tail = (
-        torch.stack(tails).amax(dim=0).tolist() if tails else (0.0, 0.0, 0.0))
-    if tails:
-        _guardrail_warnings(rcfg, budget_tail, head_tail, dedup_tail,
-                            head_tail_eps)
+                    for fi, f in enumerate(frames)]
+        budget_tail, head_tail, dedup_tail = (
+            torch.stack(tails).amax(dim=0).tolist() if tails
+            else (0.0, 0.0, 0.0))
+        if tails:
+            _guardrail_warnings(rcfg, budget_tail, head_tail, dedup_tail,
+                                head_tail_eps)
     return RenderReport(results, rcfg, budget_tail, head_tail, dedup_tail)
 
 

@@ -47,6 +47,7 @@ from ..ops.fused_grid import (FusedGrids, head_dedup_slots,
                               sample_density_brick_span, sample_density_fused,
                               sample_feature_dedup, sample_feature_fused,
                               sample_occ_bits_grouped, span_rows_required)
+from ..utils.observability import count, span
 
 
 @dataclass(frozen=True)
@@ -242,16 +243,27 @@ def _density_weights(params, mcfg, rcfg, state, rays, jitter=None,
     """Density at every sample, then alpha-compositing weights. With
     ``stop_grad`` no gradient flows back to the field. Returns (xyz_n,
     z_vals, in_box, dists, mids, alpha, weight, bg_weight)."""
-    xyz, z_vals, in_box = sample_points_in_box(rays, state, rcfg.n_samples,
-                                               rcfg.perturb, jitter)
-    dists, mids = _intervals(z_vals)
-    xyz_n = normalize_coordinates(state, xyz)
-    with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_grad):
-        sigma = _density_at(params, mcfg, fused,
-                            xyz_n.reshape(-1, 3)).reshape(xyz.shape[:2])
-    sigma = torch.where(in_box, sigma, 0.0)
-    alpha, weight, bg_weight = raw_to_alpha(sigma, dists * rcfg.distance_scale)
+    with span("render.density"):
+        xyz, z_vals, in_box = sample_points_in_box(
+            rays, state, rcfg.n_samples, rcfg.perturb, jitter)
+        dists, mids = _intervals(z_vals)
+        xyz_n = normalize_coordinates(state, xyz)
+        with torch.set_grad_enabled(torch.is_grad_enabled() and not stop_grad):
+            sigma = _density_at(params, mcfg, fused,
+                                xyz_n.reshape(-1, 3)).reshape(xyz.shape[:2])
+        if fused is not None and fused.brick_atlas is not None:
+            _count_k1(in_box)
+        sigma = torch.where(in_box, sigma, 0.0)
+        alpha, weight, bg_weight = raw_to_alpha(sigma,
+                                                dists * rcfg.distance_scale)
     return xyz_n, z_vals, in_box, dists, mids, alpha, weight, bg_weight
+
+
+def _count_k1(live: torch.Tensor) -> None:
+    """The density kernel's counters: ``k1.slots``, the samples it
+    evaluated, and ``k1.live``, those selected and in the box."""
+    count("k1.slots", live.numel())
+    count("k1.live", live)
 
 
 def occ_grouping_for(rcfg: RenderConfig, state: RenderState,
@@ -407,23 +419,27 @@ def _fine_density(mcfg, rcfg: RenderConfig, state: RenderState,
     kernel, its span form with ``fine_span_rows``, or the cell-corner rows
     of training's grids), then compositing weights. Returns (xyz_n, z_vals,
     in_box, dists, mids, alpha, weight, bg_weight)."""
-    R = rays_o.shape[0]
-    z_vals, in_box, xyz_n = fine_positions(state, rays_o, rays_d, t_min,
-                                           fine_steps, sample_valid)
-    if fused.brick_atlas is not None and rcfg.fine_span_rows is not None:
-        # the samples of a span are consecutive along the ray; whether the
-        # rows suffice is checked on the host (validate_fine_span)
-        sigma = _softplus(sample_density_brick_span(
-            fused, xyz_n.reshape(*fine_steps.shape, 3),
-            mcfg.splus_density_shift, rcfg.fine_span_rows)).reshape(R, -1)
-    else:
-        sigma = _density_at(None, mcfg, fused,
-                            xyz_n.reshape(-1, 3)).reshape(R, -1)
-    sigma = torch.where(in_box, sigma, 0.0)
-    # per-sample interval = step (uniform marching), as in the dense path
-    dists = state.step_size.expand_as(z_vals)
-    mids = z_vals + 0.5 * state.step_size
-    alpha, weight, bg_weight = raw_to_alpha(sigma, dists * rcfg.distance_scale)
+    with span("render.density"):
+        R = rays_o.shape[0]
+        z_vals, in_box, xyz_n = fine_positions(state, rays_o, rays_d, t_min,
+                                               fine_steps, sample_valid)
+        if fused.brick_atlas is not None and rcfg.fine_span_rows is not None:
+            # the samples of a span are consecutive along the ray; whether
+            # the rows suffice is checked on the host (validate_fine_span)
+            sigma = _softplus(sample_density_brick_span(
+                fused, xyz_n.reshape(*fine_steps.shape, 3),
+                mcfg.splus_density_shift, rcfg.fine_span_rows)).reshape(R, -1)
+        else:
+            sigma = _density_at(None, mcfg, fused,
+                                xyz_n.reshape(-1, 3)).reshape(R, -1)
+        if fused.brick_atlas is not None:
+            _count_k1(in_box)
+        sigma = torch.where(in_box, sigma, 0.0)
+        # per-sample interval = step (uniform marching), as in the dense path
+        dists = state.step_size.expand_as(z_vals)
+        mids = z_vals + 0.5 * state.step_size
+        alpha, weight, bg_weight = raw_to_alpha(sigma,
+                                                dists * rcfg.distance_scale)
     return xyz_n, z_vals, in_box, dists, mids, alpha, weight, bg_weight
 
 
@@ -489,21 +505,23 @@ def _two_level_density(mcfg, rcfg: RenderConfig, state: RenderState,
     use_sub = (rcfg.sub_stride is not None and rcfg.sub_stride < cs
                and fused.coarse_occ_tight is not None)
     seg_idx = seg_valid = None
-    if not (use_sub and not rcfg.use_l1):
-        seg_idx, seg_valid = _select_segments(mcfg, rcfg, state, rays_o,
-                                              rays_d, t_min, fused)
-    needed = None
-    if use_sub:
-        fine_steps, sample_valid, needed = _select_subsegments(
-            mcfg, rcfg, state, rays_o, rays_d, t_min, fused, seg_idx,
-            seg_valid)
-        group = rcfg.sub_stride
-    else:
-        # every fine sample of the selected segments
-        offs = torch.arange(cs, dtype=torch.float32, device=rays.device)
-        fine_steps = seg_idx[..., None].to(torch.float32) * cs + offs
-        sample_valid = (fine_steps < rcfg.n_samples) & seg_valid[..., None]
-        group = cs
+    with span("render.select"):
+        if not (use_sub and not rcfg.use_l1):
+            seg_idx, seg_valid = _select_segments(mcfg, rcfg, state, rays_o,
+                                                  rays_d, t_min, fused)
+        needed = None
+        if use_sub:
+            fine_steps, sample_valid, needed = _select_subsegments(
+                mcfg, rcfg, state, rays_o, rays_d, t_min, fused, seg_idx,
+                seg_valid)
+            group = rcfg.sub_stride
+        else:
+            # every fine sample of the selected segments
+            offs = torch.arange(cs, dtype=torch.float32, device=rays.device)
+            fine_steps = seg_idx[..., None].to(torch.float32) * cs + offs
+            sample_valid = ((fine_steps < rcfg.n_samples)
+                            & seg_valid[..., None])
+            group = cs
     k_sub = fine_steps.shape[1]
     kA = rcfg.term_first
     if use_sub and 0 < kA < k_sub:
@@ -875,6 +893,7 @@ def _heads_one_pass(params, mcfg, rcfg, fused, rays, xyz_h, head_weight,
     ``baked`` the sem/ins heads read the baked table. The distilled map
     (with a distilled head) is composited over all Sh columns with the
     semantic weights and unit-normalised; it is not completed."""
+    _count_heads(app_mask.numel(), app_mask)
     rgb, dist = _app_block(params, mcfg, fused, xyz_h, rays[:, 3:6], app_mask,
                            compute_dtype, dedup)
     semantics, instances = _semins_block(
@@ -896,6 +915,15 @@ def _heads_one_pass(params, mcfg, rcfg, fused, rays, xyz_h, head_weight,
                 m_full, torch.sum(head_weight[:, :k2] * mask_f[:, :k2], -1)
             )[:, None]
     return rgb_map, semantic_map, instance_map, distilled_map
+
+
+def _count_heads(slots: int, *live: torch.Tensor) -> None:
+    """The heads' counters: ``heads.slots``, the sample slots they
+    evaluate, and ``heads.live``, those of ``live`` (the slots' masks of
+    compositing weight over ``raymarch_weight_thres``)."""
+    count("heads.slots", slots)
+    for m in live:
+        count("heads.live", m)
 
 
 def _unit_rows(x: torch.Tensor) -> torch.Tensor:
@@ -940,6 +968,7 @@ def _heads_two_phase(params, mcfg, rcfg: RenderConfig, fused, rays, xyz_k,
 
     xyzB = xyz_k[surv, kA:]
     maskB = app_mask[surv, kA:]
+    _count_heads(R * kA + n_s * (k - kA), app_mask[:, :kA], maskB)
     rgbB, distB = _app_block(params, mcfg, fused, xyzB, viewdirs[surv], maskB,
                              compute_dtype)
     w_kB = w_k[surv, kA:]
@@ -999,67 +1028,84 @@ def render_rays(params, mcfg: tf.TensoRFConfig, rcfg: RenderConfig,
     ``is_train`` with ``rng`` (a ``torch.Generator`` or ``RayDraws``)
     jitters the samples and flips the background coin; training takes no
     two-phase heads, no tail completion, no dedup and no baked heads, as in
-    the JAX package."""
+    the JAX package.
+
+    The chunk runs in the span ``render.chunk`` around ``render.select``,
+    ``render.density``, ``render.head_select``, ``render.heads`` and
+    ``render.composite`` (``utils/observability.py``; the aux passes of
+    training take the same names), and counts the density kernel's samples
+    (``k1.slots``, ``k1.live``) and the heads' (``heads.slots``,
+    ``heads.live``)."""
     draws = ray_draws(rng, rays.shape[0], rays.device) if is_train else None
     jitter = draws.jitter if draws is not None else None
     two_level = (rcfg.coarse_stride is not None and fused is not None
                  and fused.coarse_occ is not None and not is_train)
-    if two_level:
-        (xyz_n, z_vals, _, dists, mids, _, weight, _,
-         budget_tail) = _two_level_density(mcfg, rcfg, state, rays, fused)
-    else:
-        xyz_n, z_vals, _, dists, mids, _, weight, _ = _density_weights(
-            params, mcfg, rcfg, state, rays, jitter, fused=fused)
-        budget_tail = torch.zeros((), device=weight.device)
-    R, S = weight.shape
-    dist_reg = distortion_loss(weight, mids, dists)
-    compute_dtype = (torch.bfloat16 if rcfg.head_dtype == "bfloat16"
-                     else torch.float32)
+    with span("render.chunk"):
+        if two_level:
+            (xyz_n, z_vals, _, dists, mids, _, weight, _,
+             budget_tail) = _two_level_density(mcfg, rcfg, state, rays, fused)
+        else:
+            xyz_n, z_vals, _, dists, mids, _, weight, _ = _density_weights(
+                params, mcfg, rcfg, state, rays, jitter, fused=fused)
+            budget_tail = torch.zeros((), device=weight.device)
+        R, S = weight.shape
+        compute_dtype = (torch.bfloat16 if rcfg.head_dtype == "bfloat16"
+                         else torch.float32)
 
-    head_tail = torch.zeros((), device=weight.device)
-    dedup_tail = torch.zeros((), device=weight.device)
-    dedup = None  # (uid, slot_k, xyz_k) when the unique-cell reads are on
-    topk = rcfg.head_topk is not None and rcfg.head_topk < S
-    if topk:
-        w_k, idx, head_tail = _head_select(rcfg, weight, rcfg.head_topk)
-        xyz_h = torch.gather(xyz_n, 1, idx[..., None].expand(*idx.shape, 3))
-        head_weight = w_k
-        Sh = rcfg.head_topk
-        # the sem/ins heads take a prefix of the k columns: the same rule
-        # at the smaller budget
-        k2 = (Sh if rcfg.head_topk_semins is None
-              else min(rcfg.head_topk_semins, Sh))
-        if (rcfg.head_dedup_cells is not None and fused is not None
-                and rcfg.head_dedup_cells < Sh and not is_train):
-            slot, uid, dedup_tail = head_dedup_slots(
-                fused, xyz_n, weight > rcfg.raymarch_weight_thres,
-                rcfg.head_dedup_cells)
-            dedup = (uid, torch.gather(slot, 1, idx), xyz_h)
-    else:
-        xyz_h, head_weight, Sh, k2 = xyz_n, weight, S, S
-    app_mask = head_weight > rcfg.raymarch_weight_thres         # [R, Sh]
-    m_full = None
-    if rcfg.head_tail_complete and topk and not is_train:
-        m_full = torch.sum(weight * (weight > rcfg.raymarch_weight_thres), -1)
-    baked = fused is not None and not is_train and "baked" in fused.features
-    if (topk and 0 < rcfg.head_term_first < Sh and not is_train
-            and dedup is None and not baked):
-        (rgb_map, semantic_map, instance_map, distilled_map,
-         head_tail) = _heads_two_phase(
-            params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
-            compute_dtype, head_tail, m_full)
-    else:
-        rgb_map, semantic_map, instance_map, distilled_map = _heads_one_pass(
-            params, mcfg, rcfg, fused, rays, xyz_h, head_weight, app_mask, k2,
-            compute_dtype, m_full, dedup, baked)
-    coin = draws.coin if draws is not None else None
-    out = _finish_maps(rcfg, coin, weight, z_vals, torch.sum(weight, -1),
-                       rgb_map, _semantic_map_postprocess(rcfg, semantic_map),
-                       instance_map, dist_reg)
-    if distilled_map is None:
-        distilled_map = torch.zeros((1, 1), device=weight.device)
-    out.update(distilled=distilled_map, budget_tail=budget_tail,
-               head_tail=head_tail, dedup_tail=dedup_tail)
+        head_tail = torch.zeros((), device=weight.device)
+        dedup_tail = torch.zeros((), device=weight.device)
+        dedup = None  # (uid, slot_k, xyz_k) when the unique-cell reads are on
+        topk = rcfg.head_topk is not None and rcfg.head_topk < S
+        with span("render.head_select"):
+            if topk:
+                w_k, idx, head_tail = _head_select(rcfg, weight,
+                                                   rcfg.head_topk)
+                xyz_h = torch.gather(xyz_n, 1,
+                                     idx[..., None].expand(*idx.shape, 3))
+                head_weight = w_k
+                Sh = rcfg.head_topk
+                # the sem/ins heads take a prefix of the k columns: the same
+                # rule at the smaller budget
+                k2 = (Sh if rcfg.head_topk_semins is None
+                      else min(rcfg.head_topk_semins, Sh))
+                if (rcfg.head_dedup_cells is not None and fused is not None
+                        and rcfg.head_dedup_cells < Sh and not is_train):
+                    slot, uid, dedup_tail = head_dedup_slots(
+                        fused, xyz_n, weight > rcfg.raymarch_weight_thres,
+                        rcfg.head_dedup_cells)
+                    dedup = (uid, torch.gather(slot, 1, idx), xyz_h)
+            else:
+                xyz_h, head_weight, Sh, k2 = xyz_n, weight, S, S
+            app_mask = head_weight > rcfg.raymarch_weight_thres     # [R, Sh]
+            m_full = None
+            if rcfg.head_tail_complete and topk and not is_train:
+                m_full = torch.sum(
+                    weight * (weight > rcfg.raymarch_weight_thres), -1)
+        baked = (fused is not None and not is_train
+                 and "baked" in fused.features)
+        with span("render.heads"):
+            if (topk and 0 < rcfg.head_term_first < Sh and not is_train
+                    and dedup is None and not baked):
+                (rgb_map, semantic_map, instance_map, distilled_map,
+                 head_tail) = _heads_two_phase(
+                    params, mcfg, rcfg, fused, rays, xyz_h, head_weight,
+                    app_mask, k2, compute_dtype, head_tail, m_full)
+            else:
+                (rgb_map, semantic_map, instance_map,
+                 distilled_map) = _heads_one_pass(
+                    params, mcfg, rcfg, fused, rays, xyz_h, head_weight,
+                    app_mask, k2, compute_dtype, m_full, dedup, baked)
+        with span("render.composite"):
+            dist_reg = distortion_loss(weight, mids, dists)
+            coin = draws.coin if draws is not None else None
+            out = _finish_maps(rcfg, coin, weight, z_vals,
+                               torch.sum(weight, -1), rgb_map,
+                               _semantic_map_postprocess(rcfg, semantic_map),
+                               instance_map, dist_reg)
+            if distilled_map is None:
+                distilled_map = torch.zeros((1, 1), device=weight.device)
+            out.update(distilled=distilled_map, budget_tail=budget_tail,
+                       head_tail=head_tail, dedup_tail=dedup_tail)
     return out
 
 
@@ -1145,17 +1191,21 @@ def _aux_heads(params, mcfg, rcfg, state, rays, rng, is_train, fused):
     xyz_n, z_vals, weight, budget_tail = aux_density_weights(
         params, mcfg, rcfg, state, rays, rng, is_train, fused)
     distance_map = torch.sum(weight * z_vals, -1)
-    live = torch.any(rays[:, 3:6] != 0, dim=-1)
-    weight, xyz_n, z_vals, tail = _aux_topk(rcfg, weight, xyz_n, z_vals, live)
-    app_mask = (weight > rcfg.raymarch_weight_thres).reshape(-1, 1)
+    with span("render.head_select"):
+        live = torch.any(rays[:, 3:6] != 0, dim=-1)
+        weight, xyz_n, z_vals, tail = _aux_topk(rcfg, weight, xyz_n, z_vals,
+                                                live)
+        app_mask = (weight > rcfg.raymarch_weight_thres).reshape(-1, 1)
+    _count_heads(app_mask.numel(), app_mask)
     # the heads honor head_dtype; compositing promotes back to float32
     compute_dtype = (torch.bfloat16 if rcfg.head_dtype == "bfloat16"
                      else torch.float32)
     flat = xyz_n.reshape(-1, 3)
     dfh = None
     if mcfg.use_distilled:
-        dfh = torch.where(app_mask, tf.render_distilled(params, mcfg, flat),
-                          0.0)
+        with span("render.heads"):
+            dfh = torch.where(app_mask,
+                              tf.render_distilled(params, mcfg, flat), 0.0)
         if rcfg.feature_stop_grad:
             dfh = dfh.detach()
     return (weight, flat, app_mask, compute_dtype, distance_map, tail,
@@ -1172,14 +1222,20 @@ def render_instance_features(params, mcfg: tf.TensoRFConfig,
     (instance_map [R, D], surface points [R, 3]); with ``return_tail`` also
     the ``_aux_topk`` and skipping guardrails. Port of
     ``render_instance_features``."""
-    (weight, flat, app_mask, compute_dtype, distance_map, tail,
-     budget_tail, dfh) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
-                                    is_train, fused)
-    R, S = weight.shape
-    instances = tf.render_instances(params, mcfg, flat, dfh, compute_dtype)
-    instances = torch.where(app_mask, instances, 0.0).reshape(R, S, -1)
-    instance_map = composite(weight, instances)
-    points_xyz = (rays[:, 0:3] + distance_map[:, None] * rays[:, 3:6]).detach()
+    with span("render.chunk"):
+        (weight, flat, app_mask, compute_dtype, distance_map, tail,
+         budget_tail, dfh) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
+                                        is_train, fused)
+        R, S = weight.shape
+        with span("render.heads"):
+            instances = tf.render_instances(params, mcfg, flat, dfh,
+                                            compute_dtype)
+            instances = torch.where(app_mask, instances, 0.0).reshape(R, S,
+                                                                      -1)
+        with span("render.composite"):
+            instance_map = composite(weight, instances)
+            points_xyz = (rays[:, 0:3]
+                          + distance_map[:, None] * rays[:, 3:6]).detach()
     if return_tail:
         return instance_map, points_xyz, tail, budget_tail
     return instance_map, points_xyz
@@ -1193,13 +1249,18 @@ def render_segment_features(params, mcfg: tf.TensoRFConfig,
                             return_tail: bool = False):
     """Semantic-logit pass on stop-gradient weights, for the segment-grouping
     loss. Port of ``render_segment_features``."""
-    (weight, flat, app_mask, compute_dtype, _, tail,
-     budget_tail, dfh) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
-                                    is_train, fused)
-    R, S = weight.shape
-    segments = tf.render_semantics(params, mcfg, flat, dfh, compute_dtype)
-    segments = torch.where(app_mask, segments, 0.0).reshape(R, S, -1)
-    segment_map = _semantic_map_postprocess(rcfg, composite(weight, segments))
+    with span("render.chunk"):
+        (weight, flat, app_mask, compute_dtype, _, tail,
+         budget_tail, dfh) = _aux_heads(params, mcfg, rcfg, state, rays, rng,
+                                        is_train, fused)
+        R, S = weight.shape
+        with span("render.heads"):
+            segments = tf.render_semantics(params, mcfg, flat, dfh,
+                                           compute_dtype)
+            segments = torch.where(app_mask, segments, 0.0).reshape(R, S, -1)
+        with span("render.composite"):
+            segment_map = _semantic_map_postprocess(
+                rcfg, composite(weight, segments))
     if return_tail:
         return segment_map, tail, budget_tail
     return segment_map

@@ -24,6 +24,7 @@ from typing import Dict, NamedTuple
 
 import torch
 
+from ..utils.observability import span
 from ..utils.tree import tree_leaves_with_path, tree_map
 
 # partition labels
@@ -108,7 +109,7 @@ class AdamChain:
         optax's ``update``: the parameter step is ``p + u * lr_scale``.
         ``grads`` and ``params`` map leaf paths to tensors."""
         updates, new_state = {}, {}
-        with torch.no_grad(), torch.profiler.record_function("adam_update"):
+        with torch.no_grad(), span("adam_update"):
             for label, spec in self.groups.items():
                 st = state[label]
                 count = st.count + 1

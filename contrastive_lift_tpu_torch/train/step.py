@@ -41,6 +41,7 @@ from ..models import tensorf as tf
 from ..ops.fused_grid import build_density_only
 from ..parallel import mesh as pmesh
 from ..renderer import render as R
+from ..utils.observability import span
 from ..utils.tree import tree_leaves_with_path, tree_map, tree_map_with_path
 from .state import TrainState, ema_update_slow, make_optimizers
 
@@ -448,7 +449,13 @@ def make_train_step(cfg, mcfg: tf.TensoRFConfig, rcfg: R.RenderConfig,
     ``mesh``: a rank of a data-parallel step (see the module docstring).
     The batches are this rank's rows of the global batch; ``rng`` draws, or
     gives, the global batch's draws. The state stays replicated and the
-    metrics are the global ones on every rank."""
+    metrics are the global ones on every rank.
+
+    Each phase runs in a span (``utils/observability.py``):
+    ``train.to_device``, ``train.main``, ``train.segment``,
+    ``train.main_backward``, ``train.main_update`` (around Adam's
+    ``adam_update``), ``train.instance``, ``train.instance_backward``,
+    ``train.ema``, ``train.instance_update``."""
     main_tx, inst_tx, _ = make_optimizers(cfg, params)
     rank, size = (0, 1) if mesh is None else (mesh.rank, mesh.size)
 
@@ -457,58 +464,65 @@ def make_train_step(cfg, mcfg: tf.TensoRFConfig, rcfg: R.RenderConfig,
              rng, lr_scale, lambda_dist_reg):
         params_ = state.params
         dev = tree_leaves_with_path(params_)[0][1].device
-        batch_main = _batch_to(batch_main, dev)
-        batch_inst = _batch_to(batch_inst, dev)
-        batch_seg = _batch_to(batch_seg, dev)
-        n_main = batch_main["rays"].shape[0]
-        n_seg = batch_seg["rays"].shape[0] if batch_seg is not None else 0
-        n_img = batch_inst["rays"].shape[0] if batch_inst is not None else 0
-        if isinstance(rng, torch.Generator):
-            rng = draw_step(
-                rng, cfg, n_main * size, n_seg * size,
-                (n_img * size, batch_inst["rays"].shape[1])
-                if batch_inst is not None else None)
-        counts = tv_main = None
-        if mesh is not None:
-            rng = shard_draws(rng, rank, n_main, n_img)
-            counts = _global_counts(
-                mesh, cfg, batch_main, batch_seg,
-                gates.segments_on and batch_seg is not None
-                and not cfg.optimize_instance_only)
+        with span("train.to_device"):
+            batch_main = _batch_to(batch_main, dev)
+            batch_inst = _batch_to(batch_inst, dev)
+            batch_seg = _batch_to(batch_seg, dev)
+            n_main = batch_main["rays"].shape[0]
+            n_seg = batch_seg["rays"].shape[0] if batch_seg is not None else 0
+            n_img = (batch_inst["rays"].shape[0] if batch_inst is not None
+                     else 0)
+            if isinstance(rng, torch.Generator):
+                rng = draw_step(
+                    rng, cfg, n_main * size, n_seg * size,
+                    (n_img * size, batch_inst["rays"].shape[1])
+                    if batch_inst is not None else None)
+            counts = tv_main = None
+            if mesh is not None:
+                rng = shard_draws(rng, rank, n_main, n_img)
+                counts = _global_counts(
+                    mesh, cfg, batch_main, batch_seg,
+                    gates.segments_on and batch_seg is not None
+                    and not cfg.optimize_instance_only)
         metrics = {}
         opt_main = state.opt_state_main
         if not cfg.optimize_instance_only:
             paths = main_tx.trained_paths()
             p = _with_grad(params_, paths)
-            loss, m = main_phase_loss(
-                p, cfg, mcfg, rcfg, state_r, gates, batch_main, rng.main,
-                lambda_dist_reg, class_weights, head_topk=aux_head_topk,
-                counts=counts)
+            with span("train.main"):
+                loss, m = main_phase_loss(
+                    p, cfg, mcfg, rcfg, state_r, gates, batch_main, rng.main,
+                    lambda_dist_reg, class_weights, head_topk=aux_head_topk,
+                    counts=counts)
             if gates.segments_on and batch_seg is not None:
-                seg, seg_tail, seg_btail = segment_phase_loss(
-                    p, cfg, mcfg, rcfg, state_r, batch_seg, rng.seg_jitter,
-                    class_weights, aux_head_topk, offset=rank * n_seg,
-                    valid_total=None if counts is None
-                    else counts["seg_valid"])
+                with span("train.segment"):
+                    seg, seg_tail, seg_btail = segment_phase_loss(
+                        p, cfg, mcfg, rcfg, state_r, batch_seg,
+                        rng.seg_jitter, class_weights, aux_head_topk,
+                        offset=rank * n_seg,
+                        valid_total=None if counts is None
+                        else counts["seg_valid"])
                 loss = loss + cfg.lambda_semantics * cfg.lambda_segment * seg
                 m["loss_segment"] = seg
                 m["aux_budget_tail"] = seg_btail
                 if aux_head_topk:
                     m["aux_head_tail"] = seg_tail
-            grads = _grads(loss, p, paths)
-            if mesh is not None:
-                grads = _all_reduce_grads(mesh, grads)
-                tv = m.pop("tv", None)
-                if tv is not None:
-                    # the parameters' own term: its gradient enters once
-                    for path, g in _grads(tv, p, paths).items():
-                        grads[path] = grads[path] + g
-                    tv_main = tv.detach()
+            with span("train.main_backward"):
+                grads = _grads(loss, p, paths)
+                if mesh is not None:
+                    grads = _all_reduce_grads(mesh, grads)
+                    tv = m.pop("tv", None)
+                    if tv is not None:
+                        # the parameters' own term: its gradient enters once
+                        for path, g in _grads(tv, p, paths).items():
+                            grads[path] = grads[path] + g
+                        tv_main = tv.detach()
             if keep_grads:
                 step.grads["main"] = grads
-            leaves = dict(tree_leaves_with_path(params_))
-            updates, opt_main = main_tx.update(grads, opt_main, leaves)
-            params_ = _apply(params_, updates, lr_scale)
+            with span("train.main_update"):
+                leaves = dict(tree_leaves_with_path(params_))
+                updates, opt_main = main_tx.update(grads, opt_main, leaves)
+                params_ = _apply(params_, updates, lr_scale)
             metrics.update({k: v.detach() for k, v in m.items()})
             metrics["loss_main"] = loss.detach()
 
@@ -516,12 +530,14 @@ def make_train_step(cfg, mcfg: tf.TensoRFConfig, rcfg: R.RenderConfig,
         if gates.instances_on and batch_inst is not None:
             paths = inst_tx.trained_paths()
             p = _with_grad(params_, paths)
-            loss_i, tail_i, btail_i = instance_phase_loss(
-                p, cfg, mcfg, rcfg, state_r, batch_inst, rng.inst_jitter,
-                aux_head_topk, first_image=rank * n_img)
-            grads_i = _grads(loss_i, p, paths)
-            if mesh is not None:
-                grads_i = _all_reduce_grads(mesh, grads_i)
+            with span("train.instance"):
+                loss_i, tail_i, btail_i = instance_phase_loss(
+                    p, cfg, mcfg, rcfg, state_r, batch_inst, rng.inst_jitter,
+                    aux_head_topk, first_image=rank * n_img)
+            with span("train.instance_backward"):
+                grads_i = _grads(loss_i, p, paths)
+                if mesh is not None:
+                    grads_i = _all_reduce_grads(mesh, grads_i)
             if keep_grads:
                 step.grads["inst"] = grads_i
             metrics["aux_budget_tail"] = torch.maximum(
@@ -534,11 +550,14 @@ def make_train_step(cfg, mcfg: tf.TensoRFConfig, rcfg: R.RenderConfig,
             if cfg.instance_loss_mode == "slow_fast":
                 # commit slow_I after the gradients are taken and before the
                 # instance update: one EMA per image of the global batch
-                params_ = ema_update_slow(params_, 0.9 ** (n_img * size),
-                                          mcfg.use_proj)
-            leaves = dict(tree_leaves_with_path(params_))
-            updates_i, opt_inst = inst_tx.update(grads_i, opt_inst, leaves)
-            params_ = _apply(params_, updates_i, lr_scale)
+                with span("train.ema"):
+                    params_ = ema_update_slow(params_, 0.9 ** (n_img * size),
+                                              mcfg.use_proj)
+            with span("train.instance_update"):
+                leaves = dict(tree_leaves_with_path(params_))
+                updates_i, opt_inst = inst_tx.update(grads_i, opt_inst,
+                                                     leaves)
+                params_ = _apply(params_, updates_i, lr_scale)
             metrics["loss_clustering"] = loss_i.detach()
 
         if mesh is not None:

@@ -14,6 +14,7 @@ random feature targets, stop-gradient features) at grid 24, with JAX's
 draws.
 """
 import dataclasses
+import json
 
 import jax
 import jax.numpy as jnp
@@ -662,24 +663,26 @@ def test_scrub_nan_grads_and_finite_check(capsys):
     assert "tree/x/0" in capsys.readouterr().err
 
 
-def test_phase_timer_and_profile_trace(tmp_path):
-    """PhaseTimer's summary has the JAX package's keys; profile_trace writes
-    one trace under its log directory, and nothing when disabled."""
-    timers = (jobs.PhaseTimer(), tobs.PhaseTimer())
-    for t in timers:
-        for _ in range(2):
-            with t.phase("x"):
-                pass
-        with t.phase("y"):
-            pass
-    want, got = timers[0].summary(), timers[1].summary()
-    assert {k: set(v) for k, v in got.items()} == {
-        k: set(v) for k, v in want.items()}
-    assert (got["x"]["count"], got["y"]["count"]) == (2, 1)
+def test_profile_trace(tmp_path):
+    """profile_trace writes one Chrome trace under its log directory, with
+    the program's spans in it, and the block's counters beside it; nothing
+    when disabled."""
     with tobs.profile_trace(tmp_path / "off", enabled=False):
         torch.ones(4).sum()
     assert not (tmp_path / "off").exists()
     with tobs.profile_trace(tmp_path / "on"):
-        torch.ones(64, 64) @ torch.ones(64, 64)
+        with tobs.span("render.chunk"):
+            with tobs.span("render.heads"):
+                torch.ones(64, 64) @ torch.ones(64, 64)
+            tobs.count("heads.live", torch.ones(3, dtype=torch.bool))
+            tobs.count("heads.slots", 4)
     traces = list((tmp_path / "on").glob("trace_*.json"))
     assert len(traces) == 1 and traces[0].stat().st_size > 0
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name") for e in events}
+    assert {"render.chunk", "render.heads"} <= names
+    counters = list((tmp_path / "on").glob("counters_*.json"))
+    assert len(counters) == 1
+    assert json.loads(counters[0].read_text()) == {"heads.live": 3,
+                                                   "heads.slots": 4}
+    assert tobs.take_spans() == [] and tobs.take_counters() == {}
