@@ -18,8 +18,8 @@ With a ``mesh`` (``parallel/mesh.py``) every rank builds the grids, rank 0
 calibrates the budgets and broadcasts its render config, and rank r renders
 the whole chunks r, r + W, ... of the frames' chunks at the same chunk size,
 so each chunk is computed exactly as in the unsharded render (the
-termination survivors are picked among a chunk's rays). Each frame's maps
-go to the host once its chunks are rendered and are gathered through the
+termination survivors are picked among a chunk's rays). Each chunk's maps
+go to the host as it renders (``_MapsToHost``) and are gathered through the
 host, in frame order, on every rank (``render_checkpoint_outputs``: on rank
 0 alone, which clusters and writes the artifacts); the guardrail maxima are
 all-reduced.
@@ -30,6 +30,7 @@ import dataclasses
 import pickle
 import time
 import warnings
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import List, NamedTuple
 
@@ -47,7 +48,7 @@ from ..renderer import render as R
 from ..renderer.bake import bake_head_tables
 from ..utils import geometry as geo
 from ..utils.device import resolve_device
-from ..utils.observability import span
+from ..utils.observability import count, span
 from ..utils.png import write_png
 from ..utils.viz import save_image, visualize_panoptic_outputs
 from .cluster import (assign_clusters, cluster, cluster_segmentwise,
@@ -195,6 +196,118 @@ def _guardrail_warnings(rcfg, budget_tail: float, head_tail: float,
             f"head_topk")
 
 
+class _MapsToHost:
+    """Each chunk's maps, copied into the host arrays given for them.
+
+    On the CPU a chunk's maps are copied into their arrays at once. On a
+    card they go into one of ``SLOTS`` pinned staging slots, through
+    non-blocking copies on a side stream that waits for the chunk. Each
+    slot is drained one chunk behind: once the next chunk is queued, a
+    worker thread waits on the slot's copy and moves its rows into their
+    arrays, while the launching thread goes on queueing chunks; it waits
+    only to reuse a slot whose drain is still running. The slots are pinned
+    through torch's caching host allocator, so the pinned memory held is
+    the ring's, whatever the number of chunks. A chunk's device maps are
+    held until its drain is done. Spans ``render.to_host`` mark the
+    launching thread's part; each drain counts ``to_host.copies``, and
+    ``to_host.ready`` where the copy had already completed when the drain
+    came to it (on the CPU, always)."""
+
+    SLOTS = 3
+
+    def __init__(self, dev: torch.device):
+        self.cuda = dev.type == "cuda"
+        self.n = 0
+        if self.cuda:
+            self.compute = torch.cuda.current_stream(dev)
+            self.side = torch.cuda.Stream(dev)
+            self.worker = ThreadPoolExecutor(1, "maps-to-host")
+            self.slots = [None] * self.SLOTS   # {key: pinned tensor}
+            self.busy = [None] * self.SLOTS    # [drain future, device maps]
+            self.pending = None                # the last chunk's drain
+
+    def put(self, maps: dict, dest: dict) -> None:
+        """Copy the first ``len(dest[k])`` rows of each ``maps[k]`` into
+        the numpy array ``dest[k]``."""
+        with span("render.to_host"):
+            if not self.cuda:
+                for k, d in dest.items():
+                    torch.from_numpy(d).copy_(maps[k][:len(d)])
+                count("to_host.copies", 1)
+                count("to_host.ready", 1)
+                return
+            s, self.n = self.n % self.SLOTS, self.n + 1
+            self._collect(s)
+            slot = self.slots[s]
+            if slot is None:
+                slot = self.slots[s] = {
+                    k: torch.empty(maps[k].shape, dtype=maps[k].dtype,
+                                   pin_memory=True) for k in dest}
+            self.side.wait_stream(self.compute)
+            with torch.cuda.stream(self.side):
+                for k, d in dest.items():
+                    slot[k][:len(d)].copy_(maps[k][:len(d)],
+                                           non_blocking=True)
+                copied = torch.cuda.Event()
+                copied.record(self.side)
+            self._hand_over()
+            self.busy[s] = [None, maps]
+            self.pending = (s, copied, slot, dest)
+
+    def _hand_over(self) -> None:
+        """The worker's turn at the last chunk's slot."""
+        if self.pending is not None:
+            s, *args = self.pending
+            self.pending = None
+            self.busy[s][0] = self.worker.submit(_drain, *args)
+
+    def _collect(self, s: int) -> None:
+        if self.busy[s] is not None:
+            drain = self.busy[s][0]
+            self.busy[s] = None
+            count("to_host.copies", 1)
+            count("to_host.ready", int(drain.result()))
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        if self.cuda:
+            try:
+                with span("render.to_host"):
+                    self._hand_over()
+                    for i in range(self.SLOTS):
+                        self._collect((self.n + i) % self.SLOTS)
+            finally:
+                self.worker.shutdown()
+        return False
+
+
+def _drain(copied: torch.cuda.Event, slot: dict, dest: dict) -> bool:
+    """The worker's part of ``_MapsToHost.put``: wait for a slot's copies,
+    move their rows into ``dest``; whether they had completed already."""
+    ready = copied.query()
+    copied.synchronize()
+    for k, d in dest.items():
+        torch.from_numpy(d).copy_(slot[k][:len(d)])
+    return ready
+
+
+def _host_arrays(maps: dict, n: int) -> dict:
+    """{key: np.empty} for ``n`` rays of each map, in its dtype."""
+    return {k: np.empty((n, *maps[k].shape[1:]),
+                        torch.empty(0, dtype=maps[k].dtype).numpy().dtype)
+            for k in MAP_KEYS}
+
+
+def _rays_to(rays: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """``rays`` on ``dev``; to a card from pinned memory, without waiting."""
+    t = torch.from_numpy(rays)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
                          chunk: int = 8192, progress: bool = False,
                          use_fused: bool = True, mesh=None,
@@ -212,8 +325,10 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
     ``render.frames`` around ``render.prepare`` (around ``render.grids``
     and ``render.calibrate``), ``render.rays_in`` (the span check, each
     frame's rays padded and uploaded), each chunk's ``render.chunk`` and
-    ``render.to_host`` (each frame's maps copied to the host, and the
-    frames' maps assembled from their chunks')."""
+    ``render.to_host`` (its maps' copy queued, ``_MapsToHost``), and on a
+    card a last ``render.to_host`` (the copies still in flight drained). Each frame's
+    maps are written into arrays of its own length, without the padding;
+    on a ``mesh`` each chunk's, for the gather."""
     if mesh is not None and chunk % mesh.size:
         raise ValueError(f"chunk={chunk} must divide mesh size {mesh.size}")
     dev = resolve_device(device)
@@ -226,7 +341,7 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
         # r, r + W, ... of all the frames' chunks (without a mesh, every chunk)
         mine = set(range(first[-1]) if mesh is None
                    else pmesh.group_batch_sharding(mesh, int(first[-1])))
-        outs, tails = {}, []
+        outs, tails, results = {}, [], [None] * len(frames)
         with torch.no_grad():
             rcfg, fused = prepare_render(
                 params, mcfg, rcfg, state_r, frames, auto_budget=auto_budget,
@@ -238,37 +353,43 @@ def render_frames_report(params, mcfg, rcfg, state_r, frames: List[FrameData],
             # the span gathers' exactness, checked once before any chunk
             with span("render.rays_in"):
                 R.validate_fine_span(rcfg, state_r)
-            for fi, f in enumerate(frames):
-                js = [j for j in range(first[fi], first[fi + 1]) if j in mine]
-                with span("render.rays_in"):
-                    rays_dev = (torch.from_numpy(_pad_to_chunks(f.rays, chunk))
-                                .to(dev) if js else None)
-                frame = {j: R.render_rays(
-                    params, mcfg, rcfg, state_r,
-                    rays_dev[(j - first[fi]) * chunk:][:chunk], fused=fused)
-                    for j in js}
-                tails.extend(torch.stack([o["budget_tail"], o["head_tail"],
-                                          o["dedup_tail"]])
-                             for o in frame.values())
-                # a frame's maps leave the card once its chunks are rendered
-                with span("render.to_host"):
-                    outs.update({j: {k: o[k].cpu().numpy() for k in MAP_KEYS}
-                                 for j, o in frame.items()})
-                if progress and (mesh is None or mesh.rank == 0):
-                    print(f"rendered frame {fi + 1}/{len(frames)}", flush=True)
+            with _MapsToHost(dev) as to_host:
+                for fi, f in enumerate(frames):
+                    js = [j for j in range(first[fi], first[fi + 1])
+                          if j in mine]
+                    with span("render.rays_in"):
+                        rays_dev = (_rays_to(_pad_to_chunks(f.rays, chunk),
+                                             dev) if js else None)
+                    for j in js:
+                        lo = (j - first[fi]) * chunk
+                        o = R.render_rays(params, mcfg, rcfg, state_r,
+                                          rays_dev[lo:lo + chunk], fused=fused)
+                        tails.append(torch.stack(
+                            [o["budget_tail"], o["head_tail"],
+                             o["dedup_tail"]]))
+                        n = min(chunk, len(f.rays) - lo)
+                        if mesh is not None:
+                            dest = outs[j] = _host_arrays(o, n)
+                        else:
+                            if results[fi] is None:
+                                results[fi] = _host_arrays(o, len(f.rays))
+                            dest = {k: a[lo:lo + n]
+                                    for k, a in results[fi].items()}
+                        to_host.put(o, dest)
+                    if progress and (mesh is None or mesh.rank == 0):
+                        print(f"rendered frame {fi + 1}/{len(frames)}",
+                              flush=True)
         if mesh is not None and frames:
             outs = pmesh.gather_chunks(mesh, outs,
                                        dst=None if maps_on_every_rank else 0)
             tail = (torch.stack(tails).amax(dim=0) if tails
                     else torch.zeros(3, device=dev))
             tails = [pmesh.all_reduce_(mesh, tail, "max")]
-        results = None
-        if mesh is None or maps_on_every_rank or mesh.rank == 0:
-            with span("render.to_host"):
-                results = [{k: np.concatenate(
-                    [outs[j][k] for j in range(first[fi], first[fi + 1])])
-                    [:len(f.rays)] for k in MAP_KEYS}
-                    for fi, f in enumerate(frames)]
+        if mesh is not None:
+            results = ([{k: np.concatenate(
+                [outs[j][k] for j in range(first[fi], first[fi + 1])])
+                for k in MAP_KEYS} for fi in range(len(frames))]
+                if maps_on_every_rank or mesh.rank == 0 else None)
         budget_tail, head_tail, dedup_tail = (
             torch.stack(tails).amax(dim=0).tolist() if tails
             else (0.0, 0.0, 0.0))

@@ -173,8 +173,8 @@ def test_render_spans_nest():
     assert _inside(spans, "render.heads", "render.chunk")
     # 2 frames of 150 rays at chunk 64: 3 chunks each
     assert sum(n == "render.chunk" for n, _, _ in spans) == 6
-    # each frame's copies, then the frames' assembly
-    assert sum(n == "render.to_host" for n, _, _ in spans) == 3
+    # each chunk's copy into its frame's arrays (on the CPU, at once)
+    assert sum(n == "render.to_host" for n, _, _ in spans) == 6
 
 
 def test_render_counters_equal_a_direct_count():
