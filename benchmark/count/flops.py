@@ -41,7 +41,8 @@ def train_step_flops(model: dict, num_classes: int, counts: dict) -> float:
     above-threshold samples a ray). A differentiated pass counts 3 times:
     the main render's density and heads (appearance, semantic), the segment
     pass's semantic head and the instance pass's fast head; the passes'
-    density without gradient and the slow head count once."""
+    density without gradient and every other instance head the
+    configuration has (the slow head) count once."""
     h = head_parts(model, num_classes)
     d = density_flops(model)
     n, box, hd = counts["main"]
@@ -49,8 +50,9 @@ def train_step_flops(model: dict, num_classes: int, counts: dict) -> float:
     n, box, hd = counts["segment"]
     total += n * (box * d + 3 * hd * h["semantic_mlp"])
     n, box, hd = counts["instance"]
-    total += n * (box * d + hd * (3 * h["instance_mlp.fast"]
-                                  + h["instance_mlp.slow"]))
+    total += n * (box * d + hd * sum(
+        (3 if name == "fast" else 1) * h[f"instance_mlp.{name}"]
+        for name in model["instance_heads"]))
     return total
 
 

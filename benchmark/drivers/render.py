@@ -13,8 +13,9 @@ the time from the window's start to the last completion.
 
 From each completed call a seeded sample of rays is kept with the maps the
 program returned for them. Once the window has closed and the peak memory
-has been read, the plain reference renders the sampled rays and the maps
-are compared (``check``).
+has been read, the plain reference of the mix's ``kind``
+(``reference/render.py`` for ``render``, found by ``core/lookup.py``)
+renders the sampled rays and the maps are compared (``check``).
 """
 from __future__ import annotations
 
@@ -24,15 +25,18 @@ import time
 import numpy as np
 import torch
 
+from benchmark.core import lookup
 from benchmark.core import trace as tr
 from benchmark.count import flops as fl
 from benchmark.count import k1_bytes
 from benchmark.fields.params import make_params
 from benchmark.fields.room import room_boxes, write_room
-from benchmark.reference import render as ref
 from benchmark.traffic import cameras
 
 MAPS = ("rgb", "depth", "semantics", "instances")
+# the keys of each of a cell's limits (``checks/<cell>.json``): the map, its
+# gap's threshold and the largest share of sampled rays over it
+LIMIT_KEYS = ("map", "tau", "limit")
 # the device bytes of K1's positions kept for the byte count of a traced run
 K1_CAPTURE_BYTES = 1 << 30
 
@@ -54,6 +58,7 @@ class Cell:
         self.grid_dim = tuple(grid_dim or spec["grid_dim"])
         self.bounds = np.asarray(spec["scene_bounds"], np.float32)
         self.IR, self.R = IR, R
+        self.ref = lookup.kind_module(self.mix["kind"], "reference")
         self.params = make_params(spec, seed, device, self.grid_dim)
         self.boxes = room_boxes(self.mix["room"], seed)
         write_room(self.params, self.mix["room"], self.boxes)
@@ -148,8 +153,8 @@ def check(cell: Cell, sampler: Sampler, limits: dict):
     against the reference's. A number is the share of sampled rays whose gap
     in a map exceeds that map's ``tau``."""
     rays = torch.as_tensor(np.concatenate(sampler.rays), device=cell.device)
-    want = ref.render(cell.params, cell.spec["model"], rays, cell.bounds,
-                      cell.grid_dim, cell.mix["step_ratio"])
+    want = cell.ref.render(cell.params, cell.spec["model"], rays,
+                           cell.bounds, cell.grid_dim, cell.mix["step_ratio"])
     got = {k: np.concatenate(v) for k, v in sampler.maps.items()}
     g = gaps(got, {k: want[k].cpu().numpy() for k in MAPS})
     numbers = {}

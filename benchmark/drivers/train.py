@@ -10,13 +10,15 @@ seed: these are the warm-up and what the check replays. The window runs
 the same step object on, sampling included, until ``seconds`` have passed.
 
 Once the window has closed and the peak memory has been read, the plain
-reference (``reference/train.py``) replays the first steps from the same
+reference of the mix's ``kind`` (``reference/train.py`` for ``train``,
+found by ``core/lookup.py``) replays the first steps from the same
 parameters, batches and draws; the numbers compared are each step's
 losses, each trained leaf's first gradient (from the program's Adam state
 after one step) and its change after the first steps, by the worst leaf,
-the MLPs and the VM factors apart, and the slow head's change under the
-EMA. The batches' rows are held to the frames they were sampled from
-(``rows_off``), since the reference replays them as they are.
+the MLPs and the VM factors apart, and, where the configuration has a slow
+head, its change under the EMA. The batches' rows are held to the frames
+they were sampled from (``rows_off``), since the reference replays them as
+they are.
 """
 from __future__ import annotations
 
@@ -25,15 +27,17 @@ import time
 import numpy as np
 import torch
 
+from benchmark.core import lookup
 from benchmark.core import trace as tr
 from benchmark.count import flops as fl
-from benchmark.fields.params import make_params
+from benchmark.fields.params import GRID_GROUPS, make_params
 from benchmark.fields.room import room_boxes, write_room
-from benchmark.reference import train as ref
 from benchmark.traffic import frames as tf
 
 # Adam's first-moment decay in both chains: mu after one step is 0.1 g
 B1 = 0.9
+# the keys of each of a cell's limits (``checks/<cell>.json``)
+LIMIT_KEYS = ("limit",)
 
 
 class TrainCell:
@@ -59,6 +63,7 @@ class TrainCell:
         self.S, self.R = S, R
         self.spec, self.seed, self.device = spec, int(seed), device
         self.mix = {**mix, **(mix_overrides or {})}
+        self.ref = lookup.kind_module(self.mix["kind"], "reference")
         self.grid_dim = tuple(grid_dim or spec["grid_dim"])
         self.bounds = np.asarray(spec["scene_bounds"], np.float32)
         # the room, its frames and the Trainer's head-budget probe come from
@@ -145,15 +150,15 @@ class TrainCell:
         return (main, inst, seg), d, metrics
 
 
-def _clone(tree):
-    return {p: t.detach().clone() for p, t in ref.leaves(tree)}
+def _clone(cell: TrainCell, tree):
+    return {p: t.detach().clone() for p, t in cell.ref.leaves(tree)}
 
 
 def group(path) -> str:
     """The numbers a trained leaf's gaps go to: the VM factors of the main
     chain's grid group (``grid``) or the MLPs and the appearance basis
     (``net``)."""
-    return "grid" if path[0] in ref.MAIN_GRID else "net"
+    return "grid" if path[0] in GRID_GROUPS else "net"
 
 
 def slow_paths(tree: dict) -> list:
@@ -191,14 +196,15 @@ def replay(cell: TrainCell, record: dict, tf32: bool = False,
            flips=None, dtype=torch.float32) -> dict:
     """The reference's first steps from the recorded parameters, batches and
     draws, computed in ``dtype``: a record of its own (losses, first
-    gradients' norms, parameters after the steps, and the segment groups
-    that tied at each step). ``flips`` maps a step to {group: the class its
+    gradients' norms, parameters after the steps, and the segment groups that
+    tied at each step). ``flips`` maps a step to {group: the class its
     target takes}."""
     dev = cell.device
 
     def cast(t):
         t = torch.as_tensor(t, device=dev)
         return t.to(dtype) if t.is_floating_point() else t
+    ref = cell.ref
     step = ref.Step(cell.spec, cell.mix, cell.bounds, cell.grid_dim, dev,
                     dtype)
     params = ref.rebuild(cell.params, {p: cast(t)
@@ -245,7 +251,9 @@ def gaps(got: dict, want: dict) -> dict:
     ``change`` (the MLPs and basis), ``grid_grad`` and ``grid_change`` (the
     VM factors): each kept leaf's gap of first-gradient norms and of
     change norms after the steps (``kept``, ``_leaf_gaps``).
-    ``slow_change``: each slow-head leaf's gap of change norms."""
+    ``slow_change``, where the parameters have a slow head (the
+    configuration's ``instance_heads``): each slow-head leaf's gap of
+    change norms."""
     p0 = want["p0"]
     scale = {k: float(np.median([abs(w[k]) for w in want["losses"]]))
              for k in want["losses"][0]}
@@ -259,8 +267,9 @@ def gaps(got: dict, want: dict) -> dict:
         out[pre + "change"] = _leaf_gaps(_change(got, p0, keep),
                                          _change(want, p0, keep), keep)
     slow = slow_paths(p0)
-    out["slow_change"] = _leaf_gaps(_change(got, p0, slow),
-                                    _change(want, p0, slow), slow)
+    if slow:
+        out["slow_change"] = _leaf_gaps(_change(got, p0, slow),
+                                        _change(want, p0, slow), slow)
     return out
 
 
@@ -362,7 +371,7 @@ def run(spec: dict, mix: dict, cell_name: str, seed: int, seconds: float,
 
 def steps_checked(cell: TrainCell, n: int) -> dict:
     """Run the first ``n`` steps, keeping what the check replays."""
-    record = {"p0": _clone(cell.params), "batches": [], "draws": [],
+    record = {"p0": _clone(cell, cell.params), "batches": [], "draws": [],
               "losses": []}
     for i in range(n):
         b, d, metrics = cell.one()
@@ -382,16 +391,16 @@ def steps_checked(cell: TrainCell, n: int) -> dict:
                         grads[p] = float(torch.linalg.norm(
                             (mu / (1 - B1)).double()))
             record["grads"] = grads
-    record["p_end"] = _clone(cell.state.params)
+    record["p_end"] = _clone(cell, cell.state.params)
     return record
 
 
 def step_flops(cell: TrainCell, record: dict) -> float:
     """Model FLOPs of one step from the configuration's shapes and the
     reference's sample counts on the first step's batches (valid rays)."""
-    step = ref.Step(cell.spec, cell.mix, cell.bounds, cell.grid_dim,
-                    cell.device)
-    params = ref.rebuild(cell.params, record["p0"])
+    step = cell.ref.Step(cell.spec, cell.mix, cell.bounds, cell.grid_dim,
+                         cell.device)
+    params = cell.ref.rebuild(cell.params, record["p0"])
     (main, inst, seg), d = record["batches"][0], record["draws"][0]
     thres = cell.spec["model"]["raymarch_weight_thres"]
     counts = {}

@@ -16,6 +16,10 @@ import math
 import torch
 
 MATRIX_MODE = ((0, 1), (0, 2), (1, 2))
+# the VM factor grids of the tree (the main chain's grid group, trained at
+# 20 times the rate of the MLPs and the basis); the plain reference, which
+# imports nothing of the harness, names them itself (``MAIN_GRID``)
+GRID_GROUPS = ("density", "appearance")
 VECTOR_MODE = (2, 1, 0)
 
 

@@ -45,10 +45,10 @@ def readings(cell_name: str, seeds, calls: int, device, **overrides):
     the bfloat16 control."""
     import torch
     from benchmark import run
-    from benchmark.drivers import render as rd
-    from benchmark.reference import render as ref
+    from benchmark.core import lookup
     bench = run.load_json(ROOT / "BENCHMARK.json")
     _, spec, mix, _ = run.cell_spec(cell_name, bench)
+    rd = lookup.kind_module(mix["kind"], "drivers")
     options = overrides.pop("options", None)
     if options:
         mix = {**mix, "render_options": {**mix.get("render_options", {}),
@@ -61,13 +61,13 @@ def readings(cell_name: str, seeds, calls: int, device, **overrides):
         rays = torch.as_tensor(np.concatenate(sampler.rays), device=device)
         args = (cell.params, spec["model"], rays, cell.bounds, cell.grid_dim,
                 mix["step_ratio"])
-        want = ref.render(*args)
+        want = cell.ref.render(*args)
         want = {k: want[k].cpu().numpy() for k in rd.MAPS}
         got = {k: np.concatenate(v) for k, v in sampler.maps.items()}
         yield seed, "program", summarise(rd.gaps(got, want))
         for name, kw in (("tf32", {"tf32": True}),
                          ("bf16_heads", {"head_dtype": torch.bfloat16})):
-            ctl = ref.render(*args, **kw)
+            ctl = cell.ref.render(*args, **kw)
             yield seed, name, summarise(rd.gaps(
                 {k: ctl[k].cpu().numpy() for k in rd.MAPS}, want))
         del cell, sampler
@@ -101,8 +101,7 @@ def plant(cell, fault: str):
     raise ValueError(fault)
 
 
-def _medians(got: dict, want: dict) -> dict:
-    from benchmark.drivers import train as td
+def _medians(td, got: dict, want: dict) -> dict:
     return {f"{k}_median": float(np.median(list(v.values())))
             for k, v in td.gaps(got, want).items()}
 
@@ -112,9 +111,10 @@ def train_readings(cell_name: str, seeds, fault_seeds: int, device,
     """Yield (seed, what, numbers) of a train cell."""
     import torch
     from benchmark import run
-    from benchmark.drivers import train as td
+    from benchmark.core import lookup
     bench = run.load_json(ROOT / "BENCHMARK.json")
     _, spec, mix, _ = run.cell_spec(cell_name, bench)
+    td = lookup.kind_module(mix["kind"], "drivers")
     n = mix["check"]["steps"]
     for i, seed in enumerate(seeds):
         cell = td.TrainCell(spec, mix, seed, device, **overrides)
@@ -122,13 +122,13 @@ def train_readings(cell_name: str, seeds, fault_seeds: int, device,
         cell.state = None
         wants = td.replays(cell, record)
         nums, want = td.closest(record, wants)
-        medians = _medians(record, want)
+        medians = _medians(td, record, want)
         # the reference against a second replay of itself (the rounding of
         # its own scatter-adds) and against itself in float64 (how far
         # float32 rounding alone moves each number on these inputs)
         again = td.closest(td.replay(cell, record), [want])[0]
         rec64 = td.replay(cell, record, dtype=torch.float64)
-        f64 = {**td.closest(rec64, [want])[0], **_medians(rec64, want)}
+        f64 = {**td.closest(rec64, [want])[0], **_medians(td, rec64, want)}
         yield seed, "program", {**nums, **td.worst(record, want), **medians,
                                 **{f"{k}_self": v for k, v in again.items()},
                                 **{f"{k}_f64": v for k, v in f64.items()},
@@ -138,7 +138,7 @@ def train_readings(cell_name: str, seeds, fault_seeds: int, device,
                                 "guardrails": record["guardrails"]}
         ctl = td.replay(cell, record, tf32=True)
         nums, want = td.closest(ctl, wants)
-        yield seed, "tf32", {**nums, **_medians(ctl, want)}
+        yield seed, "tf32", {**nums, **_medians(td, ctl, want)}
         if i < fault_seeds:
             for fault in ("half_batch", "answer_altered"):
                 cell = td.TrainCell(spec, mix, seed, device, **overrides)
@@ -149,7 +149,7 @@ def train_readings(cell_name: str, seeds, fault_seeds: int, device,
                     undo()
                 cell.state = None
                 nums, want = td.check(cell, rec)
-                yield seed, fault, {**nums, **_medians(rec, want)}
+                yield seed, fault, {**nums, **_medians(td, rec, want)}
 
 
 def main(argv=None) -> int:
@@ -170,7 +170,7 @@ def main(argv=None) -> int:
     t0 = time.perf_counter()
     from benchmark import run
     mix = run.cell_spec(args.workload, run.load_json(ROOT / "BENCHMARK.json"))[2]
-    if mix["kind"] == "train":
+    if mix["kind"].split(".")[0] == "train":
         for seed, what, nums in train_readings(
                 args.workload, args.seeds, args.fault_seeds,
                 torch.device("cuda", 0)):

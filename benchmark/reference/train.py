@@ -20,6 +20,10 @@ segment grouping, probabilistic semantics):
    fast and slow heads, the slow-fast loss; the slow head mixed toward the
    fast one by 0.1 (one image), then Adam on the fast head (betas 0.9 /
    0.999).
+
+A configuration with another instance loss subclasses ``Step`` and
+replaces ``instance_loss``; the EMA runs only where the configuration has
+a slow head (``model.instance_heads``).
 """
 from __future__ import annotations
 
@@ -299,18 +303,24 @@ class Step:
                                            batches["inst"], draws["inst"])
             g = torch.autograd.grad(loss_inst, [x[p] for p in inst_paths])
             grads_i = dict(zip(inst_paths, g))
-            # EMA of the slow head toward the fast one, before its update
-            n_img = batches["inst"]["rays"].shape[0]
-            m = 0.9 ** n_img
-            slow = {p[:1] + ("slow",) + p[2:]: m * p_leaves[p[:1] + ("slow",)
-                                                            + p[2:]]
-                    + (1 - m) * p_leaves[p] for p in inst_paths}
-            params = rebuild(params, slow)
+            if "slow" in self.model["instance_heads"]:
+                params = self.ema(params, inst_paths,
+                                  batches["inst"]["rays"].shape[0])
             params, adam = self._adam(params, adam, grads_i, "inst", lr_scale)
         losses = {"main": float(loss.detach()),
                   "segment": float(loss_seg.detach()),
                   "instance": float(loss_inst.detach())}
         return params, adam, losses, {**grads, **grads_i}
+
+    def ema(self, params, inst_paths, n_img: int):
+        """The slow head mixed toward the fast one by 0.9 an instance image,
+        before the fast head's update."""
+        p_leaves = dict(leaves(params))
+        m = 0.9 ** n_img
+        slow = {p[:1] + ("slow",) + p[2:]: m * p_leaves[p[:1] + ("slow",)
+                                                        + p[2:]]
+                + (1 - m) * p_leaves[p] for p in inst_paths}
+        return rebuild(params, slow)
 
     def _adam(self, params, adam, grads, chain, lr_scale):
         lr = self.cfg["lr"]

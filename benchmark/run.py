@@ -3,14 +3,17 @@
     python3 benchmark/run.py --workload CELL --seed N --seconds S --trace 0|1
 
 Runs one cell of ``BENCHMARK.json`` (its configuration, ``configs/``, and
-its traffic mix, ``traffic/``, found by name) on the card, and prints one
-JSON line as the last line of standard output: ``correct``, ``attempted``,
-``failed``, ``metrics`` (the cell's end-to-end metrics, or with ``--trace
-1`` its per-layer metrics, each read by ``metrics/<name>.py`` or the shared
+its traffic mix, ``traffic/``, found by name; the mix's ``kind`` names the
+cell's driver, ``drivers/``, and plain reference, ``reference/``, found by
+``core/lookup.py``) on the card, and prints one JSON line as the last line
+of standard output: ``correct``, ``attempted``, ``failed``, ``metrics``
+(the cell's end-to-end metrics, or with ``--trace 1`` its per-layer
+metrics, each read by ``metrics/<name>.py`` or the shared
 ``metrics/<quantity>.py``), ``device`` and, last, ``checks``: each number
 compared with the plain reference beside its limit (``checks/<cell>.json``),
-also printed as the last lines of standard error. Exits 1 without a result when there is no card, fewer cards
-than the cell asks for, or when JAX or the JAX package was loaded.
+also printed as the last lines of standard error. Exits 1 without a result
+when there is no card, fewer cards than the cell asks for, or when JAX or
+the JAX package was loaded.
 """
 from __future__ import annotations
 
@@ -19,13 +22,17 @@ import time
 T_START = time.perf_counter()
 
 import argparse  # noqa: E402
-import importlib.util  # noqa: E402
 import json  # noqa: E402
 import sys  # noqa: E402
 from pathlib import Path  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
-HERE = Path(__file__).resolve().parent
+if str(ROOT) not in sys.path:
+    sys.path.insert(0, str(ROOT))
+
+from benchmark.core import lookup  # noqa: E402
+from benchmark.core.lookup import metric_file  # noqa: E402
+
 FORBIDDEN = ("jax", "jaxlib", "flax", "contrastive_lift_tpu")
 
 
@@ -43,8 +50,8 @@ def cell_spec(name: str, bench: dict):
     w = cells[name]
     cfgs = {c["name"]: c for c in bench["configs"]}
     spec = load_json(ROOT / cfgs[w["config"]]["file"])
-    mix = load_json(HERE / "traffic" / f"{w['traffic']}.json")
-    limits = load_json(HERE / "checks" / f"{name}.json")["numbers"]
+    mix = load_json(lookup.HERE / "traffic" / f"{w['traffic']}.json")
+    limits = load_json(lookup.HERE / "checks" / f"{name}.json")["numbers"]
     return w, spec, mix, limits
 
 
@@ -60,20 +67,8 @@ def metrics_of(bench: dict, cell: str, kind: str):
                 else m["moves"] in mine_e2e)]
 
 
-def metric_file(name: str) -> Path:
-    """The reader of metric ``name``: ``metrics/<name>.py``, or else the
-    quantity's reader that its cells share, ``metrics/<name up to the first
-    dot>.py``."""
-    own = HERE / "metrics" / f"{name}.py"
-    return own if own.exists() else HERE / "metrics" / f"{name.split('.')[0]}.py"
-
-
 def read_metric(name: str, ctx: dict):
-    spec = importlib.util.spec_from_file_location(
-        f"bench_metric_{name.replace('.', '_')}", metric_file(name))
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.read(ctx)
+    return lookup.load_file(metric_file(name), "benchmark.metrics").read(ctx)
 
 
 def forbidden_modules():
@@ -86,13 +81,11 @@ def run_cell(cell: str, seed: int, seconds: float, trace: bool, device,
     """The result line of one run (before printing)."""
     import torch
     from benchmark.core import trace as tr
-    from benchmark.drivers import render as render_driver
-    from benchmark.drivers import train as train_driver
-    drivers = {"render": render_driver, "train": train_driver}
     bench = load_json(ROOT / "BENCHMARK.json")
     w, spec, mix, limits = cell_spec(cell, bench)
-    out = drivers[mix["kind"]].run(spec, mix, cell, seed, seconds, trace,
-                                   device, t_start, limits, **overrides)
+    out = lookup.kind_module(mix["kind"], "drivers").run(
+        spec, mix, cell, seed, seconds, trace, device, t_start, limits,
+        **overrides)
     if trace:
         values = {}
         for m in metrics_of(bench, cell, "per_layer"):
@@ -125,8 +118,6 @@ def main(argv=None) -> int:
     p.add_argument("--seconds", type=float, required=True)
     p.add_argument("--trace", type=int, choices=(0, 1), default=0)
     args = p.parse_args(argv)
-    if str(ROOT) not in sys.path:
-        sys.path.insert(0, str(ROOT))
     import torch
     bench = load_json(ROOT / "BENCHMARK.json")
     chips = {w["name"]: w["chips"] for w in bench["workloads"]}.get(

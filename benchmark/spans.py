@@ -32,14 +32,13 @@ def traced(cell: str, seed: int, seconds: float, device, t_start: float,
     """The traced run's result line with the program's breakdown."""
     import torch
     from benchmark import run
-    from benchmark.core import program
+    from benchmark.core import lookup, program
     from benchmark.core import trace as tr
-    from benchmark.drivers import render, train
     bench = run.load_json(ROOT / "BENCHMARK.json")
     w, spec, mix, limits = run.cell_spec(cell, bench)
-    drivers = {"render": render, "train": train}
-    out = drivers[mix["kind"]].run(spec, mix, cell, seed, seconds, True,
-                                   device, t_start, limits, **overrides)
+    out = lookup.kind_module(mix["kind"], "drivers").run(
+        spec, mix, cell, seed, seconds, True, device, t_start, limits,
+        **overrides)
     ctx, t = out["context"], out["trace"]
     metrics = {}
     for m in run.metrics_of(bench, cell, "per_layer"):

@@ -38,8 +38,8 @@ def test_control_fails_and_program_passes(cell):
         program, _ = rd.check(c, sampler, limits)
         assert all(program[k] <= lim["limit"] for k, lim in limits.items()), program
         rays = torch.as_tensor(np.concatenate(sampler.rays), device=dev)
-        ctl = rd.ref.render(c.params, spec["model"], rays, c.bounds,
-                            c.grid_dim, c.mix["step_ratio"], tf32=True)
+        ctl = c.ref.render(c.params, spec["model"], rays, c.bounds,
+                           c.grid_dim, c.mix["step_ratio"], tf32=True)
         sampler.maps = {k: [ctl[k].cpu().numpy()] for k in rd.MAPS}
         control, _ = rd.check(c, sampler, limits)
         assert any(control[k] > lim["limit"] for k, lim in limits.items()), control

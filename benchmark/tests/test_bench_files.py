@@ -46,9 +46,13 @@ def test_cell_files_load(cell):
     import sys
     sys.path.insert(0, str(ROOT))
     from benchmark import run
+    from benchmark.core import lookup
     w, spec, mix, limits = run.cell_spec(cell["name"], BENCH)
-    assert mix["kind"] in ("render", "train")
-    keys = {"map", "tau", "limit"} if mix["kind"] == "render" else {"limit"}
+    # the kind's driver and plain reference resolve and load; each limit
+    # carries the keys that its driver names
+    driver = lookup.kind_module(mix["kind"], "drivers")
+    assert lookup.kind_module(mix["kind"], "reference")
+    keys = set(driver.LIMIT_KEYS)
     assert limits and all(keys <= set(v) for v in limits.values())
     assert run.metrics_of(BENCH, cell["name"], "end_to_end")
     assert run.metrics_of(BENCH, cell["name"], "per_layer")
