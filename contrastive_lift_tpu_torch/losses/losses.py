@@ -5,7 +5,9 @@ Port of ``contrastive_lift_tpu/losses/losses.py``: the same static-shape
 formulations (per-label reductions over a fixed label capacity with validity
 masks), in PyTorch. ``linear_assignment_loss`` solves its assignment on the
 host with ``scipy.optimize.linear_sum_assignment``, the solver the reference
-called.
+called, inside the span ``train.assign`` (the cost's copy to the host, the
+solve and the match's copy back), with the counters ``assign.rows`` (the
+labels present) and ``assign.slots`` (the rows solved).
 
 The batch means take an optional ``count``: a rank of a data-parallel step
 passes the global batch's count, so that its loss is its share of the
@@ -20,6 +22,7 @@ import numpy as np
 import torch
 
 from ..utils.device import resolve_device
+from ..utils.observability import count, span
 
 
 def _segment_sum(values: torch.Tensor, ids: torch.Tensor,
@@ -303,8 +306,12 @@ def linear_assignment_loss(instance_logits, labels, confidences,
         counts = _segment_sum(vf, labels, num_labels)
         cost = -(sums / (counts[:, None] + 1e-4))
         cost = torch.where((counts > 0)[:, None], cost, 1e6)
-        assignment = torch.as_tensor(hungarian(cost.cpu().numpy()),
-                                     device=dev)
+        with span("train.assign"):
+            host = cost.cpu().numpy()
+            # a present label's row is a mean mass, in [-1, 0]
+            count("assign.rows", int((host[:, 0] < 1e6).sum()))
+            count("assign.slots", num_labels)
+            assignment = torch.as_tensor(hungarian(host), device=dev)
     virtual_gt = assignment[labels]
     predicted = torch.argmax(instance_logits, dim=-1)
     any_mismatch = torch.any((virtual_gt != predicted) & valid)
