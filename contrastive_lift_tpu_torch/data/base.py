@@ -8,8 +8,10 @@ JAX package's do, so one seed gives both packages the same batches:
   1. ``InstanceBundleSampler``: per-image bundles of labeled-instance rays,
      labels compacted to [0, max_labels);
   2. ``SegmentBundleSampler``: per-2D-segment bundles for the grouping loss.
-Batches are fixed-size and padded, with validity masks. Each draw runs in
-the span ``train.sample`` (``utils/observability.py``)."""
+Batches are fixed-size and padded, with validity masks. The bundles'
+permutations are numpy's, made natively on the same stream where they can
+be (``data/shuffle.py``). Each draw runs in the span ``train.sample``
+(``utils/observability.py``)."""
 from __future__ import annotations
 
 from dataclasses import dataclass, field
@@ -18,6 +20,7 @@ from typing import Dict, List, Optional
 import numpy as np
 
 from ..utils.observability import span
+from . import shuffle
 
 
 @dataclass
@@ -139,10 +142,13 @@ class InstanceBundleSampler:
             labels = np.zeros((num_images, R), np.int32)
             confs = np.zeros((num_images, R), np.float32)
             valid = np.zeros((num_images, R), bool)
+            # per image, in this order: a permutation of its rays, whose
+            # first R are taken, then one of the bundle's R slots
+            perms = shuffle.heads(rng, [n for p in picks for n in (
+                self.per_image[p]["rays"].shape[0], R)], R)
             for i, p in enumerate(picks):
                 img = self.per_image[p]
-                n = img["rays"].shape[0]
-                take = rng.permutation(n)[:R] if n > R else rng.permutation(n)
+                take = perms[2 * i]
                 k = take.size
                 rays[i, :k] = img["rays"][take]
                 confs[i, :k] = img["confidences"][take]
@@ -154,7 +160,7 @@ class InstanceBundleSampler:
                 labels[i, :k] = np.minimum(compact, self.max_labels - 1)
                 # shuffle within the bundle so the fast/slow half-split is
                 # random
-                perm = rng.permutation(R)
+                perm = perms[2 * i + 1]
                 rays[i], labels[i] = rays[i][perm], labels[i][perm]
                 confs[i], valid[i] = confs[i][perm], valid[i][perm]
             return {"rays": rays, "labels": labels, "confidences": confs,
@@ -196,10 +202,10 @@ class SegmentBundleSampler:
             group = np.zeros((num_segments * R,), np.int32)
             confs = np.zeros((num_segments * R,), np.float32)
             valid = np.zeros((num_segments * R,), bool)
-            for i, p in enumerate(picks):
+            takes = shuffle.heads(
+                rng, [self.segments[p]["rays"].shape[0] for p in picks], R)
+            for i, (p, take) in enumerate(zip(picks, takes)):
                 seg = self.segments[p]
-                n = seg["rays"].shape[0]
-                take = rng.permutation(n)[:R]
                 k = take.size
                 lo = i * R
                 rays[lo:lo + k] = seg["rays"][take]
